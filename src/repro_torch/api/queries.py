@@ -1,0 +1,196 @@
+"""Typed, batched query descriptions for graph-stream summaries.
+
+A query batch is a sequence of the four TRQ dataclasses below.  Each query
+carries vectorized vertex/edge ids plus its own inclusive ``[ts, te]``
+temporal range, so heterogeneous traffic (mixed kinds and ranges) travels
+through one ``GraphSummary.query()`` call and the planner can amortize
+boundary searches and device dispatches across the whole batch.
+
+``QueryResult``/``QueryStats`` replace the old mutable ``probe_counter``
+side-channel: every execution returns its own accounting.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Union
+
+import numpy as np
+
+
+def _ids(x) -> np.ndarray:
+    return np.atleast_1d(np.asarray(x, np.uint32))
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeQuery:
+    """Aggregated weight of edges ``src[i] -> dst[i]`` within [ts, te].
+
+    Result: float64 array of shape (q,).
+    """
+    src: np.ndarray
+    dst: np.ndarray
+    ts: int
+    te: int
+
+    def __post_init__(self):
+        object.__setattr__(self, "src", _ids(self.src))
+        object.__setattr__(self, "dst", _ids(self.dst))
+        object.__setattr__(self, "ts", int(self.ts))
+        object.__setattr__(self, "te", int(self.te))
+        if len(self.src) != len(self.dst):
+            raise ValueError("src/dst length mismatch")
+
+    def edge_arrays(self):
+        return self.src, self.dst
+
+    def reduce(self, per_edge: np.ndarray):
+        return per_edge
+
+
+@dataclasses.dataclass(frozen=True)
+class VertexQuery:
+    """Aggregated weight of each vertex's outgoing ("out") or incoming
+    ("in") edges within [ts, te].  Result: float64 array of shape (q,)."""
+    v: np.ndarray
+    ts: int
+    te: int
+    direction: str = "out"
+
+    def __post_init__(self):
+        object.__setattr__(self, "v", _ids(self.v))
+        object.__setattr__(self, "ts", int(self.ts))
+        object.__setattr__(self, "te", int(self.te))
+        if self.direction not in ("out", "in"):
+            raise ValueError(f"direction must be 'out'/'in', "
+                             f"got {self.direction!r}")
+
+    def reduce(self, per_vertex: np.ndarray):
+        return per_vertex
+
+
+@dataclasses.dataclass(frozen=True)
+class PathQuery:
+    """Sum of edge weights along consecutive vertices of a path
+    (paper Sec. III).  Result: float."""
+    vertices: np.ndarray
+    ts: int
+    te: int
+
+    def __post_init__(self):
+        object.__setattr__(self, "vertices", _ids(self.vertices))
+        object.__setattr__(self, "ts", int(self.ts))
+        object.__setattr__(self, "te", int(self.te))
+
+    def edge_arrays(self):
+        return self.vertices[:-1], self.vertices[1:]
+
+    def reduce(self, per_edge: np.ndarray):
+        return float(np.sum(per_edge))
+
+
+@dataclasses.dataclass(frozen=True)
+class SubgraphQuery:
+    """Sum of edge weights over a set of (src, dst) pairs.
+    Result: float."""
+    edges: np.ndarray  # (m, 2) or sequence of (src, dst)
+    ts: int
+    te: int
+
+    def __post_init__(self):
+        e = np.asarray(self.edges, np.uint32).reshape(-1, 2)
+        object.__setattr__(self, "edges", e)
+        object.__setattr__(self, "ts", int(self.ts))
+        object.__setattr__(self, "te", int(self.te))
+
+    def edge_arrays(self):
+        return self.edges[:, 0].copy(), self.edges[:, 1].copy()
+
+    def reduce(self, per_edge: np.ndarray):
+        return float(np.sum(per_edge))
+
+
+Query = Union[EdgeQuery, VertexQuery, PathQuery, SubgraphQuery]
+QueryBatch = Sequence[Query]
+
+# queries whose result is a reduction over an edge batch
+EDGE_LOWERED = (EdgeQuery, PathQuery, SubgraphQuery)
+
+
+@dataclasses.dataclass
+class QueryStats:
+    """Per-execution accounting (returned, never a mutable side-channel).
+
+    ``device_dispatches`` counts pool-gather + probe launches; the batched
+    planner's contract is at most one per (level, time-range-class) per
+    probe kind.  ``buckets_probed`` is the hardware-independent structural
+    counter the benchmarks report (same semantics as the old
+    ``probe_counter``).
+
+    Composition is **associative** in both directions a coalesced batch
+    fans out (callers and shards):
+
+    * :meth:`merge` combines two *distinct* executions (or two callers'
+      attributed results) — every counter sums, including ``n_queries``.
+    * :meth:`absorb` folds a fan-out *sub-execution* into its parent —
+      work counters sum but ``n_queries`` does not, because sub-batches
+      are an implementation detail of one logical execution.
+    * Shards are tracked as the ``shard_mask`` bitmask (bit ``s`` = shard
+      ``s`` did work); both compositions take the union, so
+      ``shards_touched`` (its popcount) never double-counts a shard that
+      two sub-executions both probed.
+    """
+    n_queries: int = 0
+    boundary_searches: int = 0
+    plan_cache_hits: int = 0
+    plan_cache_misses: int = 0  # ranges that paid a boundary search
+    device_dispatches: int = 0
+    buckets_probed: int = 0
+    ob_probes: int = 0          # host-side overflow-block scans
+    shard_mask: int = 0         # bitmask of shards that did any work
+    coalesced: int = 0          # callers sharing this execution (serving)
+
+    # counters that sum under BOTH compositions (everything except the
+    # query attribution, the shard union and the coalescing fan-in)
+    _WORK = ("boundary_searches", "plan_cache_hits", "plan_cache_misses",
+             "device_dispatches", "buckets_probed", "ob_probes")
+
+    @property
+    def shards_touched(self) -> int:
+        """Shards that did any work — the popcount of ``shard_mask``."""
+        return int(self.shard_mask).bit_count()
+
+    def absorb(self, other: "QueryStats") -> None:
+        """Fold a fan-out sub-execution into this (parent) execution."""
+        for f in self._WORK:
+            setattr(self, f, getattr(self, f) + getattr(other, f))
+        self.shard_mask |= other.shard_mask
+        self.coalesced = max(self.coalesced, other.coalesced)
+
+    def merge(self, other: "QueryStats") -> None:
+        """Combine a distinct execution's (or caller's) accounting."""
+        self.absorb(other)
+        self.n_queries += other.n_queries
+
+
+@dataclasses.dataclass
+class QueryResult:
+    """Results aligned with the query batch plus execution stats.
+
+    ``values[i]`` is a float64 array for Edge/VertexQuery and a float for
+    Path/SubgraphQuery — exactly what the legacy per-method API returned.
+    ``epoch`` is the read epoch the answers were served from (the
+    summary's ``structure_version`` at execution time); ``None`` when the
+    executing surface predates epoch stamping.
+    """
+    values: list
+    stats: QueryStats
+    epoch: int | None = None
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def __getitem__(self, i):
+        return self.values[i]
+
+    def __iter__(self):
+        return iter(self.values)
