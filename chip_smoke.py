@@ -18,11 +18,20 @@ kernels/csrc`` (into ``build/kernels/``), then:
 2. holds each kernel against its plain torch version on the card at the
    shapes of that run (K1 at one real drain's leaf count, K2 at one leaf,
    K3/K4 at every tree level with 4096 queries, both directions and time
-   modes): bit-exact pools and spill masks, exact probe sums (integer
-   weights);
+   modes, and K4 once more with all queries on 64 hot vertices):
+   bit-exact pools and spill masks, exact probe sums (integer weights);
+   then times each kernel back to back (``b2b_ms``: a group of launches
+   enqueued behind a sleep kernel, so the wrappers' host work is off the
+   device's clock) and for one call, and measures the dependent round
+   trips that bound K1's sequential item chain;
 3. ingests a 1.1M-edge prefix twice, once through the kernels and once
    through the plain versions (``kernels=False``), and requires equal
    pools, overflow blocks and answers.
+
+``python3 chip_smoke.py --baseline DIR`` also builds ``leaf_insert.cu``
+and ``probe.cu`` from DIR (another commit's ``src/repro_torch/kernels/
+csrc``) and times them in turns with the current kernels (parent, new,
+new, parent) on the same inputs.
 
 The counts of kernel launches are set to 0 just before the main path and
 read just after it.  The line before the last is the card's name and
@@ -47,6 +56,11 @@ BATCH = 1 << 18              # edges per insert call
 Q = 4096                     # queries per (kind, range)
 PREFIX = 1_100_000           # kernels-vs-plain end-to-end prefix
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM peak (NVIDIA data sheet)
+B2B_N = 20                   # launches per back-to-back group
+B2B_GROUPS = 5
+B2B_SLEEP_MS = 8.0           # device sleep that covers a group's enqueue
+CHAIN_ITERS = 1 << 20        # round trips of the chain microbenchmark
+HOT_VERTICES = 64            # the shared-lines phase: queries on <= 64
 DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
@@ -68,9 +82,10 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, reps: int, setup=None) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events
-    around the call only; ``setup`` runs outside the timed window)."""
+def one_call_ms(torch, fn, reps: int, setup=None) -> float:
+    """Median time of one call of ``fn`` (CUDA events around the call, so
+    the wrapper's host work counts, as it does on the main path; ``setup``
+    runs outside the timed window)."""
     times = []
     for _ in range(reps):
         if setup is not None:
@@ -83,6 +98,67 @@ def median_ms(torch, fn, reps: int, setup=None) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+SLEEP = {}                   # calibrated torch.cuda._sleep: cycles per ms
+
+
+def calibrate_sleep(torch) -> None:
+    cycles = 1 << 22
+    torch.cuda._sleep(cycles)                  # warm-up
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    SLEEP["cycles_per_ms"] = cycles / a.elapsed_time(b)
+
+
+def b2b_ms(torch, fn, prepare=None, n: int = B2B_N, groups: int = B2B_GROUPS):
+    """Device time per launch of ``n`` launches back to back: after a
+    warm-up, a sleep kernel holds the stream while the host enqueues one
+    event, the ``n`` calls and a second event, so the host's wrapper work
+    overlaps the device's and no launch waits on the host.  Median over
+    ``groups`` groups.  ``prepare(i)`` returns the arguments of launch i
+    (for in-place kernels, a fresh copy); all are made before the first
+    event.  Returns (ms, covered): ``covered`` says the host finished
+    enqueuing every group before the sleep ended."""
+    args = prepare(0) if prepare is not None else ()
+    fn(*args)
+    torch.cuda.synchronize()
+    times, covered = [], True
+    sleep_ms = B2B_SLEEP_MS
+    for _ in range(groups):
+        args = [prepare(i) if prepare is not None else () for i in range(n)]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(sleep_ms * SLEEP["cycles_per_ms"]))
+        h0 = time.perf_counter()
+        a.record()
+        for x in args:
+            fn(*x)
+        b.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+        covered &= host_ms < sleep_ms
+    return float(np.median(times)), covered
+
+
+def in_turns(torch, new, old, prepare=None):
+    """Back-to-back times of the new and the parent kernel in turns
+    (parent, new, new, parent).  Returns (new ms, parent ms or None,
+    covered), each the mean of its two readings."""
+    if old is None:
+        ms, cov = b2b_ms(torch, new, prepare)
+        return ms, None, cov
+    p1, c1 = b2b_ms(torch, old, prepare)
+    n1, c2 = b2b_ms(torch, new, prepare)
+    n2, c3 = b2b_ms(torch, new, prepare)
+    p2, c4 = b2b_ms(torch, old, prepare)
+    return (n1 + n2) / 2, (p1 + p2) / 2, c1 and c2 and c3 and c4
 
 
 def reset_counts(kmods) -> None:
@@ -211,10 +287,39 @@ def check_answers(stream, queries, results):
     return are
 
 
-def k1_k2_phase(torch, tcm, li, captured):
+def chain_bench(torch, lib) -> dict:
+    """The dependent round trip that bounds K1's item chain, on one warp
+    (``higgs_leaf_chain_bench``): mode 0 is a shared-memory read, a
+    ballot and a shared-memory write of the slot the next read takes;
+    mode 1 a ballot, a find-first-set and a shuffle.  ns and SM cycles
+    per round trip, and the SM clock they imply."""
+    from repro_torch.kernels import _build
+    out = torch.zeros(2, dtype=torch.int64, device=DEVICE)
+    res = {}
+    for mode, name in ((0, "smem_ballot_smem"), (1, "ballot_shfl")):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.higgs_leaf_chain_bench(mode, 1024, out.data_ptr(),
+                                                stream), "chain_bench")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _build.check(lib.higgs_leaf_chain_bench(
+            mode, CHAIN_ITERS, out.data_ptr(), stream), "chain_bench")
+        b.record()
+        b.synchronize()
+        ns = a.elapsed_time(b) * 1e6 / CHAIN_ITERS
+        cyc = int(out[0]) / CHAIN_ITERS
+        res[name] = dict(ns=ns, cycles=cyc, sm_mhz=cyc / ns * 1e3)
+        print(f"chain round trip {name}: {ns:.2f} ns = {cyc:.1f} SM cycles "
+              f"(SM clock {cyc / ns * 1e3:.0f} MHz)", flush=True)
+    return res
+
+
+def k1_k2_phase(torch, tcm, li, captured, parent, chain):
     """K1 on the inputs of the main path's first drain (fresh leaves, as
     the drain had them), K2 on its first leaf: bit-exact against the
-    plain versions, then timed."""
+    plain versions, then timed back to back (a fresh copy of the matrices
+    per launch), for one call, and against the parent's kernel."""
     L, d, _, b = captured["shape"]
     r = captured["r"]
     items = captured["items"]
@@ -241,29 +346,94 @@ def k1_k2_phase(torch, tcm, li, captured):
                     f"the plain version")
         require(torch.equal(ks, ps), f"{name}: spill mask differs")
         err = float((kn.w - pn.w).abs().max())
+        old = None
+        if parent is not None:
+            old = getattr(parent, name)
+            on, osp = old(fresh(), *its, r=r)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, c) for a, c in zip(on, pn)) and
+                    torch.equal(osp, ps), f"{name}: the parent's kernel "
+                    f"differs from the plain version")
         box = {}
 
         def setup(fresh=fresh):
             box["nodes"] = fresh()
 
-        ms = median_ms(torch, lambda: kern(box["nodes"], *its, r=r), 10,
-                       setup=setup)
-        plain_ms = median_ms(torch, lambda: plain(box["nodes"], *its, r=r),
-                             2, setup=setup)
+        ms, parent_ms, covered = in_turns(
+            torch, lambda nodes, kern=kern: kern(nodes, *its, r=r),
+            None if old is None else
+            (lambda nodes, old=old: old(nodes, *its, r=r)),
+            prepare=lambda i, fresh=fresh: (fresh(),))
+        one = one_call_ms(torch, lambda: kern(box["nodes"], *its, r=r), 10,
+                          setup=setup)
+        plain_ms = one_call_ms(torch, lambda: plain(box["nodes"], *its,
+                                                    r=r), 2, setup=setup)
         cells = L_ * d * d * b
         nbytes = (L_ * n * (4 * 4 + 1 + 2 * 4 * r + 4)   # items in, spill out
                   + 2 * cells * 20)                      # matrices in + out
-        out[name] = dict(L=L_, n=n, ms=ms, plain_ms=plain_ms,
-                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                         max_abs_err=err, spilled=int(ks.sum()))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        # items of a leaf are sequential: n dependent round trips at least
+        chain_ms = {k: n * v["ns"] * 1e-6 for k, v in chain.items()}
+        out[name] = dict(L=L_, n=n, ms=ms, one_call_ms=one,
+                         parent_ms=parent_ms, covered=covered,
+                         plain_ms=plain_ms, bound_ms=bound,
+                         chain_bound_ms=chain_ms, max_abs_err=err,
+                         spilled=int(ks.sum()))
+        par = "" if parent_ms is None else f", parent {parent_ms:.4f} ms " \
+            f"back to back ({parent_ms / ms:.2f}x)"
         print(f"phase {name}: L={L_} n={n} d={d} b={b} r={r} bit-exact vs "
-              f"plain; kernel {ms:.4f} ms (median of 10), plain "
-              f"{plain_ms:.1f} ms, bound {out[name]['bound_ms']:.4f} ms, "
-              f"{out[name]['spilled']} items spilled", flush=True)
+              f"plain; kernel {ms:.4f} ms back to back (covered={covered})"
+              f"{par}, one call {one:.4f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound:.4f} ms (bytes), chain bound "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in chain_ms.items())
+              + f", {out[name]['spilled']} items spilled", flush=True)
     return out
 
 
-def probe_phase(torch, tcm, pr, sk, queries):
+def vertex_bound_ms(torch, idx, vrows, d, b):
+    """The fingerprints of the distinct candidate lines (every one must be
+    read to find the matches), the queries and the answers; the weights
+    (and times) of the few matching slots are left out."""
+    lines = (idx.to(torch.int64)[None, :, None] * d
+             + vrows.to(torch.int64)[:, None, :])
+    q, r = vrows.shape
+    nbytes = (int(torch.unique(lines).numel()) * d * b * 4
+              + q * (4 + 4 * r) + len(idx) * 5 + q * 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def new_sums():
+    return dict(ms=0.0, one_call_ms=0.0, parent_ms=0.0, plain_ms=0.0,
+                bound_ms=0.0, max_abs_err=0.0, covered=True)
+
+
+def add_to(tot, **v):
+    for k, x in v.items():
+        if k == "covered":
+            tot[k] = tot[k] and x
+        elif x is not None:
+            tot[k] += x
+
+
+def timed_probe(torch, new, old, plain, tag, bound, tot):
+    """Back to back in turns with the parent, one call, plain; printed
+    and added to ``tot``."""
+    ms, parent_ms, covered = in_turns(torch, new, old)
+    one = one_call_ms(torch, new, 10)
+    plain_ms = one_call_ms(torch, plain, 2)
+    par = "" if parent_ms is None else f", parent {parent_ms:.4f} ms " \
+        f"({parent_ms / ms:.2f}x)"
+    print(f"phase {tag}: exact vs plain; kernel {ms:.4f} ms back to back "
+          f"(covered={covered}){par}, one call {one:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms", flush=True)
+    row = dict(ms=ms, one_call_ms=one, parent_ms=parent_ms,
+               plain_ms=plain_ms, bound_ms=bound, covered=covered)
+    if tot is not None:
+        add_to(tot, **row)
+    return row
+
+
+def probe_phase(torch, tcm, pr, sk, queries, parent):
     p = sk.params
     e_src, e_dst, v_out, v_in = queries
     dev = sk.device
@@ -277,10 +447,9 @@ def probe_phase(torch, tcm, pr, sk, queries):
 
     t = sk.leaf_ends
     ts_mid, te_mid = int(t[len(t) // 3]), int(t[2 * len(t) // 3])
-    tot = {"edge_probe": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                              max_abs_err=0.0),
-           "vertex_probe": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                max_abs_err=0.0)}
+    tot = {k: new_sums() for k in ("edge_probe", "vertex_probe",
+                                   "edge_probe_time", "vertex_probe_time")}
+    levels = []
     for level in range(1, sk.n_levels + 1):
         pool = sk.pools[level - 1]
         ids = np.unique(np.linspace(0, pool.n - 1, min(pool.n, 6))
@@ -295,30 +464,28 @@ def probe_phase(torch, tcm, pr, sk, queries):
         for match_time, (ts, te) in ((False, (0, 0xFFFFFFFF)),
                                      (True, (lo, te_mid))):
             f4 = 16 if match_time else 12
+            sfx = "_time" if match_time else ""
             args = (slabs, idx, mask, fs, fd, rows, cols, ts, te)
             got = pr.edge_probe(*args, match_time=match_time)
             want = pr.edge_probe_plain(*args, match_time=match_time)
             require(torch.equal(got, want), f"edge_probe L{level} "
                     f"match_time={match_time}: differs from plain")
-            ms = median_ms(torch, lambda: pr.edge_probe(
-                *args, match_time=match_time), 10)
-            plain_ms = median_ms(torch, lambda: pr.edge_probe_plain(
-                *args, match_time=match_time), 3)
             bucket = ((idx.to(torch.int64)[None, :, None, None] * d
                        + rows.to(torch.int64)[:, None, :, None]) * d
                       + cols.to(torch.int64)[:, None, None, :])
             nbytes = (int(torch.unique(bucket).numel()) * b * f4
                       + Q * (8 + 8 * r) + m * 5 + Q * 4)
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
-            hits = int((got > 0).sum())
-            print(f"phase edge_probe L{level} d={d} m={m} q={Q} "
-                  f"match_time={match_time}: exact vs plain ({hits} "
-                  f"nonzero); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                  f"bound {bound:.4f} ms", flush=True)
-            if not match_time:
-                tot["edge_probe"]["ms"] += ms
-                tot["edge_probe"]["plain_ms"] += plain_ms
-                tot["edge_probe"]["bound_ms"] += bound
+            kw = dict(match_time=match_time)
+            row = timed_probe(
+                torch, lambda: pr.edge_probe(*args, **kw),
+                None if parent is None else
+                (lambda: parent.edge_probe(*args, **kw)),
+                lambda: pr.edge_probe_plain(*args, **kw),
+                f"edge_probe L{level} d={d} m={m} q={Q} match_time="
+                f"{match_time} ({int((got > 0).sum())} nonzero)",
+                nbytes / HBM_BYTES_PER_S * 1e3, tot["edge_probe" + sfx])
+            levels.append(dict(kernel="edge_probe", level=level, d=d, m=m,
+                               match_time=match_time, **row))
             for direction, vid, side in (("out", v_out, "s"),
                                          ("in", v_in, "d")):
                 fv, vrows = coords(vid, side, level)
@@ -328,24 +495,72 @@ def probe_phase(torch, tcm, pr, sk, queries):
                 want = pr.vertex_probe_plain(*vargs, **kw)
                 require(torch.equal(got, want), f"vertex_probe L{level} "
                         f"{direction} match_time={match_time}: differs")
-                ms = median_ms(torch, lambda: pr.vertex_probe(*vargs, **kw),
-                               10)
-                plain_ms = median_ms(
-                    torch, lambda: pr.vertex_probe_plain(*vargs, **kw), 2)
-                lines = (idx.to(torch.int64)[None, :, None] * d
-                         + vrows.to(torch.int64)[:, None, :])
-                nbytes = (int(torch.unique(lines).numel()) * d * b
-                          * (f4 - 4) + Q * (4 + 4 * r) + m * 5 + Q * 4)
-                bound = nbytes / HBM_BYTES_PER_S * 1e3
-                print(f"phase vertex_probe L{level} {direction} d={d} m={m} "
-                      f"q={Q} match_time={match_time}: exact vs plain; "
-                      f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-                      f"{bound:.4f} ms", flush=True)
-                if not match_time:
-                    tot["vertex_probe"]["ms"] += ms
-                    tot["vertex_probe"]["plain_ms"] += plain_ms
-                    tot["vertex_probe"]["bound_ms"] += bound
-    return tot
+                if parent is not None:
+                    require(torch.equal(parent.vertex_probe(*vargs, **kw),
+                                        want), "the parent's vertex_probe "
+                            "differs from plain")
+                row = timed_probe(
+                    torch, lambda: pr.vertex_probe(*vargs, **kw),
+                    None if parent is None else
+                    (lambda: parent.vertex_probe(*vargs, **kw)),
+                    lambda: pr.vertex_probe_plain(*vargs, **kw),
+                    f"vertex_probe L{level} {direction} d={d} m={m} q={Q} "
+                    f"match_time={match_time}",
+                    vertex_bound_ms(torch, idx, vrows, d, b),
+                    tot["vertex_probe" + sfx])
+                levels.append(dict(kernel="vertex_probe", level=level, d=d,
+                                   m=m, direction=direction,
+                                   match_time=match_time, **row))
+    return tot, levels
+
+
+def shared_lines_phase(torch, tcm, pr, sk, stream, parent):
+    """K4 with heavily shared lines: all Q queries fall on the stream's
+    first HOT_VERTICES distinct sources ("out") or destinations ("in"),
+    at every level, without the time filter."""
+    p = sk.params
+    dev = sk.device
+    rng = np.random.default_rng(21)
+    tot, levels = new_sums(), []
+    for level in range(1, sk.n_levels + 1):
+        pool = sk.pools[level - 1]
+        ids = np.unique(np.linspace(0, pool.n - 1, min(pool.n, 6))
+                        .astype(np.int64)) + pool.base
+        idx, mask = pool.gather_ids(ids)
+        slabs = pool.device_view()
+        d = p.d(level)
+        for direction, col, side in (("out", 0, "s"), ("in", 1, "d")):
+            hot = pd_unique(stream[col])[:HOT_VERTICES]
+            vid = hot[rng.integers(0, len(hot), Q)]
+            f1, base = sk._query_coords(vid, side)
+            fv, vrows = tcm.coords_at_level(
+                torch.from_numpy(f1.astype(np.int64)).to(dev),
+                torch.from_numpy(base.astype(np.int64)).to(dev), level, p)
+            fv, vrows = fv.to(torch.int32), vrows.to(torch.int32)
+            vargs = (slabs, idx, mask, fv, vrows, 0, 0xFFFFFFFF)
+            kw = dict(direction=direction, match_time=False)
+            got = pr.vertex_probe(*vargs, **kw)
+            want = pr.vertex_probe_plain(*vargs, **kw)
+            require(torch.equal(got, want), f"shared lines: vertex_probe "
+                    f"L{level} {direction} differs from plain")
+            nlines = int(torch.unique(vrows).numel())
+            row = timed_probe(
+                torch, lambda: pr.vertex_probe(*vargs, **kw),
+                None if parent is None else
+                (lambda: parent.vertex_probe(*vargs, **kw)),
+                lambda: pr.vertex_probe_plain(*vargs, **kw),
+                f"vertex_probe shared lines L{level} {direction} d={d} "
+                f"q={Q} on {len(hot)} vertices, {nlines} distinct lines",
+                vertex_bound_ms(torch, idx, vrows, d, p.b), tot)
+            levels.append(dict(level=level, d=d, direction=direction,
+                               lines=nlines, **row))
+    return tot, levels
+
+
+def pd_unique(x: np.ndarray) -> np.ndarray:
+    """Distinct values in order of first appearance."""
+    _, first = np.unique(x, return_index=True)
+    return x[np.sort(first)]
 
 
 def prefix_phase(torch, api, stream, queries):
@@ -452,6 +667,107 @@ def profile_phase(torch, api, stream, sk, queries):
                 host_query=host_query)
 
 
+class ParentKernels:
+    """Another commit's kernels (``leaf_insert.cu`` and ``probe.cu`` from
+    the directory given with ``--baseline``), built with the same flags
+    and called through the C signatures they had at the port's first
+    slice, so the current kernels can be timed in turns with them on the
+    same inputs.  Never counted, never on the main path."""
+
+    SIGNATURES = {
+        "leaf_insert": {"higgs_leaf_insert": ["p"] * 13 + ["i"] * 5 + ["p"]},
+        "probe": {
+            "higgs_edge_probe": ["p"] * 10 + ["u", "u", "i", "p"]
+            + ["i"] * 5 + ["p"],
+            "higgs_vertex_probe": ["p"] * 7 + ["u", "u", "i", "i", "p"]
+            + ["i"] * 5 + ["p"],
+        },
+    }
+
+    def __init__(self, torch, src_dir: Path):
+        import ctypes
+        import hashlib
+
+        from repro_torch.kernels import _build
+        self.torch, self._build = torch, _build
+        ct = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint}
+        out_dir = _build.BUILD_DIR.parent / "parent"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in self.SIGNATURES:
+            src = src_dir / f"{name}.cu"
+            tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+            lib = out_dir / f"{name}-{tag}.so"
+            procs[name] = (lib, None if lib.exists() else subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                 str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        self.libs = {}
+        for name, (lib, proc) in procs.items():
+            if proc is not None:
+                log, _ = proc.communicate()
+                require(proc.returncode == 0, f"parent {name}.cu did not "
+                        f"build:\n{log}")
+            self.libs[name] = ctypes.CDLL(str(lib))
+            for fn, sig in self.SIGNATURES[name].items():
+                getattr(self.libs[name], fn).argtypes = [ct[c] for c in sig]
+                getattr(self.libs[name], fn).restype = ctypes.c_int
+
+    def _stream(self):
+        return self.torch.cuda.current_stream().cuda_stream
+
+    def leaf_insert_batched(self, nodes, fs, fd, rows, cols, w, t, valid, *,
+                            r):
+        L, n = fs.shape
+        d, b = nodes.fp_s.shape[1], nodes.fp_s.shape[3]
+        spill = self.torch.empty((L, n), dtype=self.torch.int32,
+                                 device=fs.device)
+        rc = self.libs["leaf_insert"].higgs_leaf_insert(
+            *(x.data_ptr() for x in (*nodes, fs, fd, w, t, valid, rows,
+                                     cols, spill)),
+            L, n, d, b, r, self._stream())
+        self._build.check(rc, "parent leaf_insert")
+        return nodes, spill
+
+    def leaf_insert(self, node, fs, fd, rows, cols, w, t, valid, *, r):
+        nodes = type(node)(*(x[None] for x in node))
+        _, spill = self.leaf_insert_batched(
+            nodes, fs[None], fd[None], rows[None], cols[None], w[None],
+            t[None], valid[None], r=r)
+        return node, spill[0]
+
+    def edge_probe(self, slabs, idx, mask, fs, fd, rows, cols, ts, te, *,
+                   match_time):
+        m, q, d, b, r = len(idx), rows.shape[0], slabs.fp_s.shape[1], \
+            slabs.fp_s.shape[3], rows.shape[1]
+        out = self.torch.empty((q,), dtype=self.torch.float32,
+                               device=fs.device)
+        rc = self.libs["probe"].higgs_edge_probe(
+            *(x.data_ptr() for x in (slabs.fp_s, slabs.fp_d, slabs.w,
+                                     slabs.t, idx, mask, fs, fd, rows,
+                                     cols)),
+            ts & 0xFFFFFFFF, te & 0xFFFFFFFF, int(match_time),
+            out.data_ptr(), m, q, d, b, r, self._stream())
+        self._build.check(rc, "parent edge_probe")
+        return out
+
+    def vertex_probe(self, slabs, idx, mask, fv, rows, ts, te, *, direction,
+                     match_time):
+        m, q, d, b, r = len(idx), rows.shape[0], slabs.fp_s.shape[1], \
+            slabs.fp_s.shape[3], rows.shape[1]
+        fp = slabs.fp_s if direction == "out" else slabs.fp_d
+        out = self.torch.empty((q,), dtype=self.torch.float32,
+                               device=fv.device)
+        rc = self.libs["probe"].higgs_vertex_probe(
+            *(x.data_ptr() for x in (fp, slabs.w, slabs.t, idx, mask, fv,
+                                     rows)),
+            ts & 0xFFFFFFFF, te & 0xFFFFFFFF, int(match_time),
+            int(direction == "in"), out.data_ptr(), m, q, d, b, r,
+            self._stream())
+        self._build.check(rc, "parent vertex_probe")
+        return out
+
+
 def write_report(report: dict) -> None:
     OUT.mkdir(exist_ok=True)
     tmp = OUT / f".chip_smoke.{os.getpid()}.json"
@@ -460,7 +776,7 @@ def write_report(report: dict) -> None:
     os.replace(tmp, OUT / "chip_smoke.json")
 
 
-def run(torch) -> dict:
+def run(torch, baseline: Path | None = None) -> dict:
     from repro_torch import EdgeQuery, HiggsParams, HiggsSketch, VertexQuery
     from repro_torch.core import cmatrix as tcm
     from repro_torch.kernels import _build
@@ -479,8 +795,15 @@ def run(torch) -> dict:
           f"{'; already built' if not _build.BUILD_LOG else ''})", flush=True)
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    parent = None
+    if baseline is not None:
+        t1 = time.perf_counter()
+        parent = ParentKernels(torch, baseline)
+        print(f"parent kernels from {baseline} built in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    calibrate_sleep(torch)
     t1 = time.perf_counter()
     stream = wiki_talk_like_stream(N_EDGES, seed=STREAM_SEED)
     n_users = N_EDGES // 8
@@ -508,8 +831,19 @@ def run(torch) -> dict:
               f"exact > 0", flush=True)
     stats = {f"{k}/{n}": s.__dict__ for (k, n), (_, s) in results.items()}
 
-    k12 = k1_k2_phase(torch, tcm, li, captured)
-    k34 = probe_phase(torch, tcm, pr, sk, queries)
+    chain = chain_bench(torch, _build.library("leaf_insert"))
+    k12 = k1_k2_phase(torch, tcm, li, captured, parent, chain)
+    k34, probe_levels = probe_phase(torch, tcm, pr, sk, queries, parent)
+    shared, shared_levels = shared_lines_phase(torch, tcm, pr, sk, stream,
+                                               parent)
+    for name, tot in (*k34.items(), ("vertex_probe_shared", shared)):
+        par = "" if parent is None else \
+            f", parent {tot['parent_ms']:.4f} ms " \
+            f"({tot['parent_ms'] / tot['ms']:.2f}x)"
+        print(f"sum over levels {name}: kernel {tot['ms']:.4f} ms back to "
+              f"back{par}, one call {tot['one_call_ms']:.4f} ms, plain "
+              f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms",
+              flush=True)
     prof = profile_phase(torch, api, stream, sk, queries)
     del sk
     torch.cuda.empty_cache()
@@ -530,12 +864,18 @@ def run(torch) -> dict:
                     replaces=rep, launches=launches[name],
                     max_abs_err=m["max_abs_err"], ms=m["ms"],
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-                    bound_by="bytes", library_ms=None)
+                    bound_by="bytes", library_ms=None,
+                    one_call_ms=m["one_call_ms"],
+                    parent_ms=m["parent_ms"] if parent else None,
+                    chain_bound_ms=m.get("chain_bound_ms"))
                for name, f, rep, m in rows]
-    report = dict(kernels=kernels, k1_k2=k12, probes=k34, profile=prof,
-                  answers=are,
-                  query_stats=stats, ingest_s=ingest_s, query_s=q_s,
-                  peak_bytes=peak, total_s=time.perf_counter() - t0)
+    report = dict(kernels=kernels, k1_k2=k12, chain=chain, probes=k34,
+                  probe_levels=probe_levels, shared_lines=shared,
+                  shared_lines_levels=shared_levels, profile=prof,
+                  answers=are, query_stats=stats, ingest_s=ingest_s,
+                  query_s=q_s, peak_bytes=peak,
+                  baseline=None if baseline is None else str(baseline),
+                  total_s=time.perf_counter() - t0)
     write_report(report)
     return {"kernels": kernels}
 
@@ -554,9 +894,21 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
+    baseline = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--baseline":
+        baseline = Path(sys.argv[2]).resolve()
+        if not all((baseline / f).is_file() for f in ("leaf_insert.cu",
+                                                      "probe.cu")):
+            print(f"chip_smoke: {baseline} lacks leaf_insert.cu/probe.cu",
+                  file=sys.stderr)
+            return 2
+    elif len(sys.argv) > 1:
+        print("usage: python3 chip_smoke.py [--baseline CSRC_DIR]",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(REPO / "src"))
     try:
-        summary = run(torch)
+        summary = run(torch, baseline)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -29,15 +29,18 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-# C signatures of the exported launchers (all return a cudaError_t)
+# C signatures of the exported functions: the launchers return a
+# cudaError_t, the size queries a size_t
 _SIGNATURES = {
     "leaf_insert": {
         "higgs_leaf_insert": [_P] * 13 + [_I] * 5 + [_P],
+        "higgs_leaf_chain_bench": [_I, _I, _P, _P],
     },
     "probe": {
         "higgs_edge_probe": [_P] * 10 + [_U, _U, _I, _P] + [_I] * 5 + [_P],
-        "higgs_vertex_probe": [_P] * 7 + [_U, _U, _I, _I, _P] + [_I] * 5
-        + [_P],
+        "higgs_vertex_probe": [_P] * 7 + [_U, _U, _I, _I, _P, _P]
+        + [_I] * 5 + [_P],
+        "higgs_vertex_probe_workspace": ([_I] * 4, ctypes.c_size_t),
     },
 }
 
@@ -94,9 +97,11 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all()
         lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in _SIGNATURES[name].items():
+        for fn, sig in _SIGNATURES[name].items():
+            argtypes, restype = sig if isinstance(sig, tuple) \
+                else (sig, ctypes.c_int)
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         _LIBS[name] = lib
     return lib
 

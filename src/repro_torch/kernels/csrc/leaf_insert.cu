@@ -12,164 +12,311 @@
 // Within one bucket a match beats a free slot.  An item no bucket takes is
 // spilled (spill[e] = 1).
 //
-// Design: one warp (one CTA of 32 threads) per leaf.  The leaf's SoA
-// matrix (d*d*b slots of fp_s, fp_d, t, idx, w: 15 KiB at d=16, b=3) is
-// loaded into shared memory, updated there and written back once.  Items
-// stay strictly sequential within the leaf; leaves run in parallel across
-// the SMs.  For one item, lane k tests bucket k (all b slots) and a ballot
-// picks the lowest bucket that offers a match or a free slot, so the
-// reference's per-bucket priority is kept exactly.  Weight updates are
-// single float32 adds in arrival order (bit-identical to the reference).
-// Item data is staged 32 items at a time into shared memory with one
-// coalesced load per field.
-//
 // Bound on this card: the matrices are read and written once and the items
-// read once, so bytes set the floor; the sequential item chain inside a
-// leaf (a shared-memory read, a ballot and a write per item) is what the
-// kernel actually waits on.
+// read once (about 8 us at L = 402, d = 16, b = 3), but the items of one
+// leaf are strictly sequential, so what the kernel waits on is the chain
+// from one item's decision to the next item's.  The design keeps only
+// register work and two warp collectives on that chain:
+//
+// - One warp (one CTA of 32 threads) per leaf; lane k owns bucket k of the
+//   current item (r*r <= 32).  The leaf's matrix lives in shared memory for
+//   the whole launch as one 16-byte {fp_s, fp_d, t, w} record per slot
+//   (idx beside it), so a lane reads its b candidate slots with b
+//   independent 16-byte loads.
+// - Item data never passes through shared memory: the next 32-item tile's
+//   fields (one item per lane) and every lane's row and column of each of
+//   its items are loaded from global memory into registers a whole tile
+//   ahead, so the tile's bucket bases (row*d + col)*b are ready in
+//   registers when it starts, and item fields reach the lanes by shuffles.
+// - Item e+1's candidate slots are loaded, and tested against its key,
+//   while item e is decided.  Item e writes at most one slot; its cell and
+//   new weight reach every lane by shuffle, and a lane whose candidate is
+//   that cell corrects its flags: the cell then holds item e's key, so it
+//   matches iff the two items' keys are equal (a per-item flag worked out
+//   when the tile is loaded).  The chain per item is therefore: a cell
+//   compare, the bucket's priority, ballot, find-first-set, shuffle -- no
+//   shared-memory round trip.
+// - Spill flags stay in a register of the item's lane and are stored once
+//   per tile, coalesced.
+//
+// Semantics kept bit for bit: the per-bucket priority (the lowest lane with
+// a match or a free slot wins, a match beating a free slot within its
+// bucket), arrival order, and one __fadd_rn per item into the chosen slot.
+//
+// higgs_leaf_chain_bench measures the dependent round trips that bound
+// such a chain (see chip_smoke.py); it is not on the sketch's path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kEmpty = -1;   // int32 bit pattern of 0xFFFFFFFF
-constexpr int kTile = 32;    // items staged per tile (one per lane)
+constexpr int kEmpty = -1;            // int32 bit pattern of 0xFFFFFFFF
+constexpr int kTile = 32;             // items per tile (one per lane)
+constexpr int kMaxB = 8;              // slots per bucket the kernel takes
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void leaf_insert_kernel(
+// The next tile's raw items: lane e holds item e0+e's fields; every lane
+// holds the row (its bucket's i) and column (its j) of all kTile items.
+struct Tile {
+  int fs, fd, t, v;
+  float w;
+  int row[kTile], col[kTile];
+};
+
+__device__ __forceinline__ void fetch_tile(
+    Tile& tl, int e0, int n, size_t item0, int r, int ri, int ci,
+    const int32_t* __restrict__ fs, const int32_t* __restrict__ fd,
+    const float* __restrict__ w, const int32_t* __restrict__ t,
+    const uint8_t* __restrict__ valid, const int32_t* __restrict__ rows,
+    const int32_t* __restrict__ cols) {
+  const int lane = threadIdx.x;
+  const bool in = e0 + lane < n;
+  const size_t g = item0 + (in ? e0 + lane : 0);
+  tl.fs = fs[g];
+  tl.fd = fd[g];
+  tl.t = t[g];
+  tl.w = w[g];
+  tl.v = in && valid[g];
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+    const size_t e = item0 + min(e0 + j, n - 1);
+    tl.row[j] = rows[e * r + ri];
+    tl.col[j] = cols[e * r + ci];
+  }
+}
+
+template <int B>
+__device__ __forceinline__ void load_bucket(const int4* s_slot, int base,
+                                            int4 (&v)[B]) {
+#pragma unroll
+  for (int s = 0; s < B; ++s) v[s] = s_slot[base + s];
+}
+
+template <int B>
+__global__ void __launch_bounds__(32) leaf_insert_kernel(
     int32_t* __restrict__ fp_s, int32_t* __restrict__ fp_d,
     float* __restrict__ w_m, int32_t* __restrict__ t_m,
-    int32_t* __restrict__ idx_m,                      // (L, d, d, b)
+    int32_t* __restrict__ idx_m,                      // (L, d, d, B)
     const int32_t* __restrict__ fs, const int32_t* __restrict__ fd,
     const float* __restrict__ w, const int32_t* __restrict__ t,
     const uint8_t* __restrict__ valid,                // (L, n)
     const int32_t* __restrict__ rows,
     const int32_t* __restrict__ cols,                 // (L, n, r)
     int32_t* __restrict__ spill,                      // (L, n)
-    int n, int d, int b, int r) {
-  extern __shared__ int32_t smem[];
-  const int cells = d * d * b;
-  int32_t* s_fps = smem;
-  int32_t* s_fpd = s_fps + cells;
-  int32_t* s_t = s_fpd + cells;
-  int32_t* s_idx = s_t + cells;
-  float* s_w = reinterpret_cast<float*>(s_idx + cells);
-  int32_t* q_fs = reinterpret_cast<int32_t*>(s_w + cells);
-  int32_t* q_fd = q_fs + kTile;
-  int32_t* q_t = q_fd + kTile;
-  int32_t* q_v = q_t + kTile;
-  float* q_w = reinterpret_cast<float*>(q_v + kTile);
-  int32_t* q_rows = reinterpret_cast<int32_t*>(q_w + kTile);
-  int32_t* q_cols = q_rows + kTile * r;
-
+    int n, int d, int r) {
+  extern __shared__ int4 s_slot[];                    // {fp_s, fp_d, t, w}
+  constexpr unsigned kSlots = (1u << B) - 1;          // bits of the b slots
+  const int cells = d * d * B;
+  int32_t* s_idx = reinterpret_cast<int32_t*>(s_slot + cells);
   const int lane = threadIdx.x;
   const size_t leaf = blockIdx.x;
   const size_t moff = leaf * cells;
   for (int c = lane; c < cells; c += 32) {
-    s_fps[c] = fp_s[moff + c];
-    s_fpd[c] = fp_d[moff + c];
-    s_t[c] = t_m[moff + c];
+    s_slot[c] = make_int4(fp_s[moff + c], fp_d[moff + c], t_m[moff + c],
+                          __float_as_int(w_m[moff + c]));
     s_idx[c] = idx_m[moff + c];
-    s_w[c] = w_m[moff + c];
+  }
+  const bool bucket_lane = lane < r * r;
+  const int ri = bucket_lane ? lane / r : 0;
+  const int ci = bucket_lane ? lane % r : 0;
+  const size_t item0 = leaf * n;
+
+  Tile nx;
+  if (n > 0)
+    fetch_tile(nx, 0, n, item0, r, ri, ci, fs, fd, w, t, valid, rows, cols);
+  __syncwarp();
+
+  for (int e0 = 0; e0 < n; e0 += kTile) {
+    const int my_fs = nx.fs, my_fd = nx.fd, my_t = nx.t;
+    const float my_w = nx.w;
+    // what item e's candidates hold where item e-1 just wrote: item e-1's
+    // key, so they match iff the two items' keys are equal
+    const int p_fs = __shfl_up_sync(kFull, my_fs, 1);
+    const int p_fd = __shfl_up_sync(kFull, my_fd, 1);
+    const int p_t = __shfl_up_sync(kFull, my_t, 1);
+    const bool same = p_fs == my_fs && p_fd == my_fd && p_t == my_t;
+    const int my_flags = nx.v | (same && p_fs != kEmpty ? 2 : 0) |
+                         (p_fs == kEmpty ? 4 : 0);
+    int base[kTile];                    // this lane's bucket of each item
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) base[j] = (nx.row[j] * d + nx.col[j]) * B;
+    if (e0 + kTile < n)                 // a whole tile ahead
+      fetch_tile(nx, e0 + kTile, n, item0, r, ri, ci, fs, fd, w, t, valid,
+                 rows, cols);
+
+    int4 cur[B];
+    load_bucket<B>(s_slot, base[0], cur);   // sees every earlier write
+    int last_c = -1, last_w = 0;
+    int my_spill = 0;
+#pragma unroll
+    for (int e = 0; e < kTile; ++e) {
+      const int f_s = __shfl_sync(kFull, my_fs, e);
+      const int f_d = __shfl_sync(kFull, my_fd, e);
+      const int tv = __shfl_sync(kFull, my_t, e);
+      const float wv = __shfl_sync(kFull, my_w, e);
+      const int fl = __shfl_sync(kFull, my_flags, e);
+      // item e+1's candidates, read before item e writes: they see every
+      // write up to item e-1
+      int4 nxt[B];
+      if (e + 1 < kTile) load_bucket<B>(s_slot, base[e + 1], nxt);
+      // bit s: slot s matches item e / is free, as read (off the chain)
+      unsigned mm = 0, em = 0;
+#pragma unroll
+      for (int s = 0; s < B; ++s) {
+        const bool free_s = cur[s].x == kEmpty;
+        em |= (unsigned)free_s << s;
+        mm |= (unsigned)(!free_s && cur[s].x == f_s && cur[s].y == f_d &&
+                         cur[s].z == tv) << s;
+      }
+      // what the slot item e-1 wrote now holds: item e-1's key (fl bit 1:
+      // it equals item e's; bit 2: it is EMPTY)
+      const unsigned smask = fl & 2 ? kSlots : 0u;
+      const unsigned emask = fl & 4 ? kSlots : 0u;
+      // the chain: item e-1's cell, compared with this lane's bucket
+      const unsigned off = (unsigned)(last_c - base[e]);
+      const unsigned wr = off < (unsigned)B ? 1u << off : 0u;
+      mm = (mm & ~wr) | (wr & smask);
+      em = (em & ~wr) | (wr & emask);
+      const bool can = bucket_lane && (fl & 1) && (mm | em) != 0u;
+      const unsigned ok = __ballot_sync(kFull, can);
+      // this lane's slot (first match, else first free) and new weight
+      const int slot = __ffs(mm ? mm : em) - 1;
+      int old_w = cur[0].w;
+#pragma unroll
+      for (int s = 1; s < B; ++s)
+        if (slot == s) old_w = cur[s].w;
+      if (wr && (unsigned)slot == off) old_w = last_w;
+      const int my_c = can ? base[e] + slot : -1;
+      const int my_nw =
+          __float_as_int(__fadd_rn(__int_as_float(old_w), wv));
+      // -1 when no bucket takes the item: srcLane -1 reads lane 31, whose
+      // my_c is then -1 too
+      const int win = __ffs(ok) - 1;
+      last_c = __shfl_sync(kFull, my_c, win);
+      last_w = __shfl_sync(kFull, my_nw, win);
+      const bool am_win = lane == win;
+      if (am_win) s_slot[my_c] = make_int4(f_s, f_d, tv, my_nw);
+      if (am_win && mm == 0u) s_idx[my_c] = lane;
+      if (lane == e) my_spill = (fl & 1) && !ok;
+      __syncwarp();
+      if (e + 1 < kTile) {
+#pragma unroll
+        for (int s = 0; s < B; ++s) cur[s] = nxt[s];
+      }
+    }
+    if (e0 + lane < n) spill[item0 + e0 + lane] = my_spill;
   }
   __syncwarp();
 
-  const int rr = r * r;
-  for (int e0 = 0; e0 < n; e0 += kTile) {
-    const int cnt = min(kTile, n - e0);
-    const size_t it0 = leaf * n + e0;
-    if (lane < cnt) {
-      q_fs[lane] = fs[it0 + lane];
-      q_fd[lane] = fd[it0 + lane];
-      q_t[lane] = t[it0 + lane];
-      q_w[lane] = w[it0 + lane];
-      q_v[lane] = valid[it0 + lane];
-    }
-    for (int c = lane; c < cnt * r; c += 32) {
-      q_rows[c] = rows[it0 * r + c];
-      q_cols[c] = cols[it0 * r + c];
-    }
-    __syncwarp();
-    for (int e = 0; e < cnt; ++e) {
-      int spilled = 0;
-      if (q_v[e]) {
-        const int32_t f_s = q_fs[e], f_d = q_fd[e], tv = q_t[e];
-        const float wv = q_w[e];
-        bool done = false;
-        // buckets in groups of 32 (one per lane); `done` is warp-uniform
-        for (int g = 0; g < rr && !done; g += 32) {
-          const int k = g + lane;
-          int mslot = -1, eslot = -1, base = 0;
-          if (k < rr) {
-            const int row = q_rows[e * r + k / r];
-            const int col = q_cols[e * r + k % r];
-            base = (row * d + col) * b;
-            for (int s = 0; s < b; ++s) {
-              const int32_t x = s_fps[base + s];
-              if (mslot < 0 && x == f_s && s_fpd[base + s] == f_d &&
-                  s_t[base + s] == tv && x != kEmpty)
-                mslot = s;
-              if (eslot < 0 && x == kEmpty) eslot = s;
-            }
-          }
-          const unsigned ok = __ballot_sync(0xffffffffu,
-                                            mslot >= 0 || eslot >= 0);
-          if (ok) {
-            done = true;
-            if (lane == __ffs(ok) - 1) {
-              if (mslot >= 0) {
-                const int c = base + mslot;
-                s_w[c] = __fadd_rn(s_w[c], wv);
-              } else {
-                const int c = base + eslot;
-                s_fps[c] = f_s;
-                s_fpd[c] = f_d;
-                s_t[c] = tv;
-                s_idx[c] = k;
-                s_w[c] = __fadd_rn(s_w[c], wv);
-              }
-            }
-          }
-        }
-        spilled = done ? 0 : 1;
-      }
-      if (lane == 0) spill[it0 + e] = spilled;
-      __syncwarp();
-    }
-  }
-
   for (int c = lane; c < cells; c += 32) {
-    fp_s[moff + c] = s_fps[c];
-    fp_d[moff + c] = s_fpd[c];
-    t_m[moff + c] = s_t[c];
+    const int4 x = s_slot[c];
+    fp_s[moff + c] = x.x;
+    fp_d[moff + c] = x.y;
+    t_m[moff + c] = x.z;
+    w_m[moff + c] = __int_as_float(x.w);
     idx_m[moff + c] = s_idx[c];
-    w_m[moff + c] = s_w[c];
   }
+}
+
+// Dependent round trips of one warp, `iters` times (mode 0: shared-memory
+// read -> ballot -> shared-memory write of the slot the next read takes;
+// mode 1: ballot -> find-first-set -> shuffle).  out[0] gets the SM cycles
+// of the loop.
+template <int MODE>
+__global__ void chain_bench_kernel(int iters, long long* out) {
+  __shared__ int s[64];
+  const int lane = threadIdx.x;
+  s[lane] = lane * 7 + 1;
+  s[lane + 32] = lane * 3 + 2;
+  __syncwarp();
+  int a = 0, acc = lane;
+  const long long c0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    if (MODE == 0) {
+      const int x = s[a];
+      const unsigned bal = __ballot_sync(kFull, ((x >> (lane & 7)) ^ lane) & 1);
+      const int nxt = (__ffs(bal | 0x80000000u) + i) & 63;
+      if (lane == 0) s[nxt] = x + (int)bal;
+      __syncwarp();
+      a = nxt;
+    } else {
+      const unsigned bal =
+          __ballot_sync(kFull, ((acc >> (lane & 7)) ^ lane) & 1);
+      acc = __shfl_sync(kFull, acc + i, __ffs(bal | 0x80000000u) - 1);
+    }
+  }
+  const long long c1 = clock64();
+  if (lane == 0) {
+    out[0] = c1 - c0;
+    out[1] = a + acc;                   // keeps the chain live
+  }
+}
+
+template <int B>
+int launch(size_t smem, int L, int n, int d, int r, cudaStream_t stream,
+           void* fp_s, void* fp_d, void* w_m, void* t_m, void* idx_m,
+           const void* fs, const void* fd, const void* w, const void* t,
+           const void* valid, const void* rows, const void* cols,
+           void* spill) {
+  static size_t configured = 0;         // once per process and size
+  if (smem > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        leaf_insert_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = smem;
+  }
+  leaf_insert_kernel<B><<<L, 32, smem, stream>>>(
+      (int32_t*)fp_s, (int32_t*)fp_d, (float*)w_m, (int32_t*)t_m,
+      (int32_t*)idx_m, (const int32_t*)fs, (const int32_t*)fd,
+      (const float*)w, (const int32_t*)t, (const uint8_t*)valid,
+      (const int32_t*)rows, (const int32_t*)cols, (int32_t*)spill, n, d, r);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" size_t higgs_leaf_insert_smem(int d, int b, int r) {
-  return (size_t)d * d * b * 5 * 4 + (size_t)kTile * (5 + 2 * r) * 4;
+extern "C" size_t higgs_leaf_insert_smem(int d, int b) {
+  return (size_t)d * d * b * (16 + 4);
 }
 
 // Returns a cudaError_t (0 on success); launches on `stream`, no sync.
+// Takes 1 <= b <= 8 and r*r <= 32 (cudaErrorInvalidValue otherwise).
 extern "C" int higgs_leaf_insert(
     void* fp_s, void* fp_d, void* w_m, void* t_m, void* idx_m,
     const void* fs, const void* fd, const void* w, const void* t,
     const void* valid, const void* rows, const void* cols, void* spill,
     int L, int n, int d, int b, int r, void* stream) {
   if (L <= 0) return 0;
-  const size_t smem = higgs_leaf_insert_smem(d, b, r);
-  cudaError_t err = cudaFuncSetAttribute(
-      leaf_insert_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  leaf_insert_kernel<<<L, 32, smem, (cudaStream_t)stream>>>(
-      (int32_t*)fp_s, (int32_t*)fp_d, (float*)w_m, (int32_t*)t_m,
-      (int32_t*)idx_m, (const int32_t*)fs, (const int32_t*)fd,
-      (const float*)w, (const int32_t*)t, (const uint8_t*)valid,
-      (const int32_t*)rows, (const int32_t*)cols, (int32_t*)spill,
-      n, d, b, r);
+  if (b < 1 || b > kMaxB || r < 1 || r * r > 32)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = higgs_leaf_insert_smem(d, b);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HIGGS_LEAF_CASE(B)                                                 \
+  case B:                                                                  \
+    return launch<B>(smem, L, n, d, r, s, fp_s, fp_d, w_m, t_m, idx_m, fs, \
+                     fd, w, t, valid, rows, cols, spill);
+  switch (b) {
+    HIGGS_LEAF_CASE(1)
+    HIGGS_LEAF_CASE(2)
+    HIGGS_LEAF_CASE(3)
+    HIGGS_LEAF_CASE(4)
+    HIGGS_LEAF_CASE(5)
+    HIGGS_LEAF_CASE(6)
+    HIGGS_LEAF_CASE(7)
+    HIGGS_LEAF_CASE(8)
+  }
+#undef HIGGS_LEAF_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int higgs_leaf_chain_bench(int mode, int iters, void* out,
+                                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == 0)
+    chain_bench_kernel<0><<<1, 32, 0, s>>>(iters, (long long*)out);
+  else
+    chain_bench_kernel<1><<<1, 32, 0, s>>>(iters, (long long*)out);
   return (int)cudaGetLastError();
 }

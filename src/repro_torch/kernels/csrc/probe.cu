@@ -14,8 +14,8 @@
 //
 // The TPU kernels stream whole (matrix, row-tile) blocks through VMEM with
 // one-hot candidate masks, because per-query gathers are slow on the TPU's
-// vector unit.  On Hopper a gather is cheap, so each query reads only its
-// candidate slots:
+// vector unit.  On Hopper a gather is cheap, and the two kernels gather
+// differently:
 //
 // K3 (edge): one warp per query.  The m*r*r*b candidate slots are spread
 //   over the lanes; each lane sums its matches and a fixed-order shuffle
@@ -23,12 +23,37 @@
 //   candidate slots' bytes (4 fields x 4 bytes; scattered 4-byte reads, so
 //   each touches a 32-byte sector).
 //
-// K4 (vertex): one 256-thread block per query.  Each warp takes (matrix,
-//   candidate) pairs; its lanes stride over the d*b slots of the candidate
-//   row ("out": contiguous, coalesced) or column ("in": one b-slot run per
-//   row, d*b*4 bytes apart, so most of each 32-byte sector is wasted).  Warp
-//   partials are summed by thread 0 in warp order (deterministic).  Bound:
-//   the candidate lines' bytes.
+// K4 (vertex): many queries share candidate lines (query vertices are
+//   Zipf-drawn and a level has at most m*d distinct lines), so a kernel per
+//   query reads the same lines again and again -- about 1.2 GB of traffic
+//   per launch at level 6 against 38 MB of distinct bytes -- and "in" lines
+//   are columns, b-slot runs d*b*4 bytes apart.  Here the (query,
+//   candidate) pairs are grouped by line block (up to kMaxLines adjacent
+//   lines; about 128 blocks once d >= 128), and each block of a matrix is
+//   read from global memory once per work unit of kPairs pairs (once per
+//   launch unless more pairs fall on it), with coalesced reads: "out" lines
+//   are row segments, and a block of adjacent columns is read as row
+//   segments of nl*b contiguous slots.  At the top levels a line holds many
+//   slots of the queried fingerprint (the hot vertices' edges, and
+//   fingerprints shortened by a bit per level), so w (and t) are staged
+//   beside fp and every slot is added branch-free.  Three launches per
+//   chunk of kMaxPairs pairs:
+//   1. prep (one CTA per kSeg pairs, so the grouping's scattered traffic
+//      spreads over SMs): pairs with equal (line, fv) share one
+//      representative (the Zipf-drawn query sets repeat their hot
+//      vertices), and the representatives are sorted by line block within
+//      the CTA's segment;
+//   2. probe (one CTA per line block, unit slot and matrix): concatenate
+//      the segments' runs of the block, take units of kPairs pairs, stage
+//      the block's slots in shared memory (cp.async, chunks of the cross
+//      dimension); each thread owns one pair and scans its line with four
+//      running sums (threads on one line read the same words: a
+//      broadcast); one partial per (matrix, pair);
+//   3. sum: each query adds its pairs' representatives' m*r partials in a
+//      fixed order (matrix, then candidate).  No float atomics: results are
+//      deterministic.
+//   Bound: the distinct candidate lines' bytes; the compare loop, m*d*b
+//   slots per distinct pair, is of the same order at the top levels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,42 +101,292 @@ __global__ void edge_probe_kernel(
   if (lane == 0) out[qi] = acc;
 }
 
-constexpr int kVertexWarps = 8;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxLines = 8;     // adjacent lines per line block (at most)
+constexpr int kPairs = 128;      // pairs per work unit = probe CTA threads
+constexpr int kStage = 768;      // slots per line per staged chunk
+constexpr int kSeg = 1024;       // pairs per prep CTA (one per thread)
+constexpr int kMaxSegs = 16;     // prep CTAs per launch
+constexpr int kMaxPairs = kSeg * kMaxSegs;   // pairs per launch
+constexpr int kHash = 2 * kSeg;
+constexpr int kMaxR = 8;         // candidates per query the kernel takes
 
-__global__ void vertex_probe_kernel(
+__host__ __device__ __forceinline__ int stage_pitch(int b) {
+  // words per staged line: a multiple of 4 (16-byte loads) that is 4 mod
+  // 32, so the lines of a block start on distinct bank quads
+  return ((kStage / b) * b + 31) / 32 * 32 + 4;
+}
+
+// lines per block: 1 up to d = 128, then about 128 blocks, at most 8 lines
+__host__ __device__ __forceinline__ int lines_per_block(int d) {
+  return d >= 128 * kMaxLines ? kMaxLines : (d >= 256 ? d / 128 : 1);
+}
+
+__device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+               "l"(src));
+}
+
+// 1. one CTA per segment of kSeg pairs p = qi*r + i (one per thread):
+//    pairs with equal (line, fv) share one representative (queries repeat:
+//    Zipf-drawn vertices), rep_of[p]; the representatives are sorted by
+//    line block inside the segment's slice of `order`, with their count
+//    and offset per block in cnt/off[segment][block].
+__global__ void __launch_bounds__(kSeg) vertex_prep_kernel(
+    const int32_t* __restrict__ fv, const int32_t* __restrict__ rows, int P,
+    int r, int d, int32_t* __restrict__ order, int32_t* __restrict__ cnt,
+    int32_t* __restrict__ off, int32_t* __restrict__ rep_of) {
+  extern __shared__ int32_t sh[];
+  const int lb = lines_per_block(d), nblk = (d + lb - 1) / lb;
+  int32_t* s_ln = sh;                   // line of each pair
+  int32_t* s_f = sh + kSeg;             // fv of each pair
+  int32_t* s_tab = sh + 2 * kSeg;       // hash -> pair slot
+  int32_t* hist = s_tab + kHash;        // representatives per block
+  int32_t* warps = hist + nblk;         // 32
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int seg0 = blockIdx.x * kSeg, p = seg0 + tid;
+  const bool active = p < P;
+  const int ln = active ? rows[p] : -1;
+  const int32_t f = active ? fv[p / r] : 0;
+  s_ln[tid] = ln;
+  s_f[tid] = f;
+  for (int i = tid; i < kHash; i += kSeg) s_tab[i] = -1;
+  for (int i = tid; i < nblk; i += kSeg) hist[i] = 0;
+  __syncthreads();
+  uint32_t h = ((uint32_t)ln * 0x9E3779B1u) ^ (uint32_t)f;
+  h *= 0x85EBCA6Bu;
+  h = active ? (h ^ (h >> 15)) & 0x7FFFFFFFu : 0x80000000u | (unsigned)lane;
+  // lanes with equal hashes defer to their leader, so a hot vertex costs
+  // one table probe per warp
+  const unsigned peers = __match_any_sync(kFull, h);
+  const int leader = __ffs(peers) - 1;
+  const bool same = s_ln[wid * 32 + leader] == ln &&
+                    s_f[wid * 32 + leader] == f;
+  auto insert = [&]() -> int {
+    for (int slot = h & (kHash - 1);; slot = (slot + 1) & (kHash - 1)) {
+      const int old = atomicCAS(&s_tab[slot], -1, tid);
+      if (old < 0) return tid;
+      if (s_ln[old] == ln && s_f[old] == f) return old;
+    }
+  };
+  int rep = tid;
+  if (active && lane == leader) rep = insert();
+  const int lead_rep = __shfl_sync(kFull, rep, leader);
+  if (active && lane != leader) rep = same ? lead_rep : insert();
+  if (active) rep_of[p] = seg0 + rep;
+  const bool is_rep = active && rep == tid;
+  const int blk = is_rep ? ln / lb : -1;
+  const int rank = is_rep ? atomicAdd(&hist[blk], 1) : 0;
+  __syncthreads();
+  // exclusive scan of hist (nblk counts) by the whole CTA
+  const int per = (nblk + kSeg - 1) / kSeg;
+  const int lo = min(nblk, tid * per), hi = min(nblk, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) {
+    sum += hist[i];
+    cnt[blockIdx.x * nblk + i] = hist[i];
+  }
+  int inc = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += v;
+  }
+  if (lane == 31) warps[wid] = inc;
+  __syncthreads();
+  if (wid == 0) {
+    int wv = warps[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, wv, o);
+      if (lane >= o) wv += v;
+    }
+    warps[lane] = wv;
+  }
+  __syncthreads();
+  int run = inc - sum + (wid > 0 ? warps[wid - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    const int v = hist[i];
+    hist[i] = run;
+    off[blockIdx.x * nblk + i] = run;
+    run += v;
+  }
+  __syncthreads();
+  if (is_rep) order[seg0 + hist[blk] + rank] = p;
+}
+
+// 2. one CTA per (line block, unit slot, matrix): the block's
+//    representatives are the concatenation of the segments' runs; the CTA
+//    takes units of kPairs of them (u = blockIdx.y, + gridDim.y, ...),
+//    stages the block's fp, w (and t) (cp.async, chunks of the cross
+//    dimension), and each thread scans its pair's line: four running sums
+//    over slots 4i .. 4i+3, added in a fixed order.  partial[mi][p] = the
+//    representative pair's sum.
+template <bool TIME>
+__global__ void __launch_bounds__(kPairs) vertex_probe_kernel(
     const int32_t* __restrict__ fp, const float* __restrict__ w,
     const int32_t* __restrict__ t, const int32_t* __restrict__ idx,
     const uint8_t* __restrict__ mask, const int32_t* __restrict__ fv,
-    const int32_t* __restrict__ rows, uint32_t ts, uint32_t te,
-    int match_time, int dir_in, float* __restrict__ out, int m, int d,
-    int b, int r) {
-  __shared__ float partial[kVertexWarps];
-  const int qi = blockIdx.x;
-  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int32_t f = fv[qi];
-  const int line_len = d * b;
-  float acc = 0.f;
-  for (int p = wid; p < m * r; p += kVertexWarps) {
-    const int mi = p / r;
-    if (!mask[mi]) continue;
-    const size_t line = rows[qi * r + (p - mi * r)];
-    const size_t mbase = (size_t)idx[mi] * d * d * b;
-    for (int e = lane; e < line_len; e += 32) {
-      const int x = e / b, s = e - (e / b) * b;
-      const size_t c = dir_in ? mbase + ((size_t)x * d + line) * b + s
-                              : mbase + (line * d + x) * b + s;
-      if (fp[c] == f && (!match_time || in_range(t[c], ts, te)))
-        acc += w[c];
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ order,
+    const int32_t* __restrict__ cnt, const int32_t* __restrict__ off,
+    int nseg, uint32_t ts, uint32_t te, int dir_in,
+    float* __restrict__ partial, int P, int d, int b, int r) {
+  extern __shared__ __align__(16) int32_t s_fp[];   // lb x pitch, fp
+  __shared__ int32_t s_pre[kMaxSegs + 1], s_src[kMaxSegs];
+  const int blk = blockIdx.x, mi = blockIdx.z;
+  if (!mask[mi]) return;                      // the sum skips masked ones
+  const int tid = threadIdx.x;
+  const int lb = lines_per_block(d), nblk = (d + lb - 1) / lb;
+  if (tid < 32) {                             // runs of the segments
+    const int c = tid < nseg ? cnt[tid * nblk + blk] : 0;
+    int inc = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, inc, o);
+      if (tid >= o) inc += v;
     }
+    if (tid < nseg) {
+      s_pre[tid] = inc - c;
+      s_src[tid] = tid * kSeg + off[tid * nblk + blk];
+    }
+    if (tid == 31) s_pre[kMaxSegs] = inc;
   }
-  acc = warp_sum(acc);
-  if (lane == 0) partial[wid] = acc;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-    for (int i = 0; i < kVertexWarps; ++i) total += partial[i];
-    out[qi] = total;
+  const int n_b = s_pre[kMaxSegs];
+  const int pitch = stage_pitch(b);
+  int32_t* s_w = s_fp + lb * pitch;           // then w, then t
+  int32_t* s_t = s_w + lb * pitch;
+  const int X = kStage / b;                   // cross positions per chunk
+  const int l0 = blk * lb, nl = min(lb, d - l0);
+  const size_t mbase = (size_t)idx[mi] * d * d * b;
+  // "in": row x of a chunk holds seg = nl*b contiguous slots; thread tid
+  // stages slot k_in of rows tid / seg, tid / seg + rows_per_pass, ...
+  const int seg = nl * b, rows_per_pass = kPairs / seg;
+  const int k_in = tid % seg, l_in = k_in / b, s_in = k_in - l_in * b;
+  for (int u0 = blockIdx.y * kPairs; u0 < n_b; u0 += gridDim.y * kPairs) {
+    const int j = u0 + tid;
+    int p = -1, line = l0;
+    int32_t f = 0;
+    if (j < n_b) {
+      int g = 0;
+      while (g + 1 < nseg && s_pre[g + 1] <= j) ++g;
+      p = order[s_src[g] + j - s_pre[g]];
+      line = rows[p];
+      f = fv[p / r];
+    }
+    const int li = (line - l0) * pitch;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    for (int x0 = 0; x0 < d; x0 += X) {
+      const int nx = min(X, d - x0), run = nx * b;
+      // stage fp, w (and t) of the block's lines: element e of a line is
+      // cross x0 + e / b, slot e % b
+      auto stage = [&](int dst, size_t src) {
+        cp_async4(s_fp + dst, fp + src);
+        cp_async4(s_w + dst, reinterpret_cast<const int32_t*>(w) + src);
+        if (TIME) cp_async4(s_t + dst, t + src);
+      };
+      if (!dir_in) {                          // line = row: contiguous runs
+        for (int l = 0; l < nl; ++l) {
+          const size_t g = mbase + ((size_t)(l0 + l) * d + x0) * b;
+          for (int e = tid; e < run; e += kPairs) stage(l * pitch + e, g + e);
+        }
+      } else if (rows_per_pass > 0) {         // line = column
+        if (tid < rows_per_pass * seg) {
+          for (int x = tid / seg; x < nx; x += rows_per_pass)
+            stage(l_in * pitch + x * b + s_in,
+                  mbase + ((size_t)(x0 + x) * d + l0) * b + k_in);
+        }
+      } else {                                // wide buckets: seg > kPairs
+        for (int e = tid; e < nx * seg; e += kPairs) {
+          const int x = e / seg, k = e - x * seg, l = k / b;
+          stage(l * pitch + x * b + (k - l * b),
+                mbase + ((size_t)(x0 + x) * d + l0) * b + k);
+        }
+      }
+      asm volatile("cp.async.wait_all;\n" ::);
+      __syncthreads();
+      if (p >= 0) {
+        // four running sums (slots 4i, 4i+1, ...), added in a fixed order
+        const int32_t* lf = s_fp + li;
+        const float* lw = reinterpret_cast<const float*>(s_w + li);
+        const int32_t* lt = s_t + li;
+        auto take = [&](int32_t fpv, int32_t tv) {
+          return fpv == f && (!TIME || in_range(tv, ts, te));
+        };
+        const int run4 = run & ~3;
+        for (int e = 0; e < run4; e += 4) {
+          const int4 fq = *reinterpret_cast<const int4*>(lf + e);
+          const float4 wq = *reinterpret_cast<const float4*>(lw + e);
+          int4 tq = make_int4(0, 0, 0, 0);
+          if (TIME) tq = *reinterpret_cast<const int4*>(lt + e);
+          a0 += take(fq.x, tq.x) ? wq.x : 0.f;
+          a1 += take(fq.y, tq.y) ? wq.y : 0.f;
+          a2 += take(fq.z, tq.z) ? wq.z : 0.f;
+          a3 += take(fq.w, tq.w) ? wq.w : 0.f;
+        }
+        for (int e = run4; e < run; ++e)
+          a0 += take(lf[e], TIME ? lt[e] : 0) ? lw[e] : 0.f;
+      }
+      __syncthreads();
+    }
+    const float acc = (a0 + a1) + (a2 + a3);
+    if (p >= 0) partial[(size_t)mi * P + p] = acc;
   }
+}
+
+// 3. out[qi] = sum over unmasked matrices, then candidates, of the
+//    partials of each candidate pair's representative
+__global__ void vertex_sum_kernel(const float* __restrict__ partial,
+                                  const uint8_t* __restrict__ mask,
+                                  const int32_t* __restrict__ rep_of,
+                                  float* __restrict__ out, int m, int q,
+                                  int r) {
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= q) return;
+  const size_t P = (size_t)q * r;
+  int src[kMaxR];
+#pragma unroll
+  for (int i = 0; i < kMaxR; ++i) src[i] = i < r ? rep_of[qi * r + i] : 0;
+  float acc = 0.f;
+  for (int mi = 0; mi < m; ++mi) {
+    if (!mask[mi]) continue;
+#pragma unroll
+    for (int i = 0; i < kMaxR; ++i)
+      if (i < r) acc += partial[mi * P + src[i]];
+  }
+  out[qi] = acc;
+}
+
+struct VertexWorkspace {
+  int32_t *order, *cnt, *off, *rep_of;
+  float* partial;
+};
+
+// int32 words of scratch for launches of P <= kMaxPairs pairs: order[P],
+// cnt and off[segments * nblk], rep_of[P], partial[m * P]
+__host__ VertexWorkspace vertex_workspace(void* base, int m, int q, int d,
+                                          int r, size_t* words) {
+  const int qc = q < kMaxPairs / r ? q : kMaxPairs / r;
+  const size_t P = (size_t)qc * r;
+  const int lb = lines_per_block(d), nblk = (d + lb - 1) / lb;
+  const size_t nseg = (P + kSeg - 1) / kSeg;
+  int32_t* w32 = static_cast<int32_t*>(base);
+  VertexWorkspace ws;
+  ws.order = w32;
+  ws.cnt = w32 + P;
+  ws.off = ws.cnt + nseg * nblk;
+  ws.rep_of = ws.off + nseg * nblk;
+  ws.partial = reinterpret_cast<float*>(ws.rep_of + P);
+  *words = 2 * P + 2 * nseg * nblk + (size_t)m * P;
+  return ws;
+}
+
+// cudaFuncSetAttribute once per process and size
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem, size_t& configured) {
+  if (smem <= configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) configured = smem;
+  return err;
 }
 
 }  // namespace
@@ -134,16 +409,64 @@ extern "C" int higgs_edge_probe(
   return (int)cudaGetLastError();
 }
 
+extern "C" size_t higgs_vertex_probe_workspace(int m, int q, int d,
+                                               int r) {
+  size_t words = 0;
+  vertex_workspace(nullptr, m, q, d, r, &words);
+  return words;
+}
+
+// `ws` holds higgs_vertex_probe_workspace(m, q, d, r) int32 words.
+// Takes r <= kMaxR and b <= kStage (cudaErrorInvalidValue otherwise).
 extern "C" int higgs_vertex_probe(
     const void* fp, const void* w, const void* t, const void* idx,
     const void* mask, const void* fv, const void* rows, unsigned int ts,
-    unsigned int te, int match_time, int dir_in, void* out, int m, int q,
-    int d, int b, int r, void* stream) {
+    unsigned int te, int match_time, int dir_in, void* out, void* ws_base,
+    int m, int q, int d, int b, int r, void* stream) {
   if (q <= 0) return 0;
-  vertex_probe_kernel<<<q, kVertexWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)fp, (const float*)w, (const int32_t*)t,
-      (const int32_t*)idx, (const uint8_t*)mask, (const int32_t*)fv,
-      (const int32_t*)rows, ts, te, match_time, dir_in, (float*)out, m, d,
-      b, r);
+  if (b < 1 || b > kStage || r < 1 || r > kMaxR)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  size_t words = 0;
+  const VertexWorkspace ws = vertex_workspace(ws_base, m, q, d, r, &words);
+  const int lb = lines_per_block(d), nblk = (d + lb - 1) / lb;
+  const size_t gsmem = (2 * kSeg + kHash + nblk + 32) * sizeof(int32_t);
+  const size_t psmem =
+      (size_t)(match_time ? 3 : 2) * lb * stage_pitch(b) * sizeof(int32_t);
+  static size_t conf[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+  cudaError_t err = allow_smem(vertex_prep_kernel, gsmem, conf[2]);
+  if (err == cudaSuccess)
+    err = match_time ? allow_smem(vertex_probe_kernel<true>, psmem, conf[1])
+                     : allow_smem(vertex_probe_kernel<false>, psmem, conf[0]);
+  if (err != cudaSuccess) return (int)err;
+  const int qchunk = kMaxPairs / r;
+  for (int q0 = 0; q0 < q; q0 += qchunk) {
+    const int qc = q - q0 < qchunk ? q - q0 : qchunk, P = qc * r;
+    const int nseg = (P + kSeg - 1) / kSeg;
+    const int32_t* fv_c = (const int32_t*)fv + q0;
+    const int32_t* rows_c = (const int32_t*)rows + (size_t)q0 * r;
+    vertex_prep_kernel<<<nseg, kSeg, gsmem, s>>>(
+        fv_c, rows_c, P, r, d, ws.order, ws.cnt, ws.off, ws.rep_of);
+    if (m > 0) {
+      // unit slots per block: the mean units per block, plus one
+      const dim3 grid(nblk, (P + kPairs * nblk - 1) / (kPairs * nblk) + 1,
+                      m);
+      if (match_time)
+        vertex_probe_kernel<true><<<grid, kPairs, psmem, s>>>(
+            (const int32_t*)fp, (const float*)w, (const int32_t*)t,
+            (const int32_t*)idx, (const uint8_t*)mask, fv_c, rows_c,
+            ws.order, ws.cnt, ws.off, nseg, ts, te, dir_in, ws.partial, P,
+            d, b, r);
+      else
+        vertex_probe_kernel<false><<<grid, kPairs, psmem, s>>>(
+            (const int32_t*)fp, (const float*)w, (const int32_t*)t,
+            (const int32_t*)idx, (const uint8_t*)mask, fv_c, rows_c,
+            ws.order, ws.cnt, ws.off, nseg, ts, te, dir_in, ws.partial, P,
+            d, b, r);
+    }
+    vertex_sum_kernel<<<(qc + 127) / 128, 128, 0, s>>>(
+        ws.partial, (const uint8_t*)mask, ws.rep_of, (float*)out + q0, m, qc,
+        r);
+  }
   return (int)cudaGetLastError();
 }

@@ -119,15 +119,20 @@ def vertex_probe(slabs: NodeState, idx, mask, fv, rows, ts: int, te: int,
            fv=(fv, i32), rows=(rows, i32))
     if fv.shape != (q,):
         raise ValueError("fv must be (q,) and rows (q, r)")
+    if not (1 <= b <= 768 and 1 <= r <= 8):
+        raise ValueError(f"the vertex-probe kernel takes 1 <= b <= 768 and "
+                         f"1 <= r <= 8, got b={b}, r={r}")
     out = torch.empty((q,), dtype=torch.float32, device=fv.device)
     lib = _build.library("probe")
+    ws = torch.empty((lib.higgs_vertex_probe_workspace(m, q, d, r),),
+                     dtype=torch.int32, device=fv.device)
     with torch.cuda.device(fv.device):
         rc = lib.higgs_vertex_probe(
             *(x.data_ptr() for x in (fp, slabs.w, slabs.t, idx, mask, fv,
                                      rows)),
             ts & MASK32, te & MASK32, int(match_time),
-            int(direction == "in"), out.data_ptr(), m, q, d, b, r,
-            torch.cuda.current_stream().cuda_stream)
+            int(direction == "in"), out.data_ptr(), ws.data_ptr(), m, q, d,
+            b, r, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "vertex_probe")
     vertex_probe.launches += 1
     return out

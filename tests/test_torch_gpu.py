@@ -49,25 +49,20 @@ def leaf_items(rng, L, n, d, r, F, dev):
     return [x.to(dt).contiguous().to(dev) for x, dt in zip(items, dtypes)]
 
 
-@pytest.mark.parametrize("L,d,b,r,n", [(1, 16, 3, 4, 900),
-                                       (64, 16, 3, 4, 652),
-                                       (7, 8, 2, 2, 200),
-                                       (3, 32, 3, 1, 300)])
-def test_leaf_insert_kernel_matches_plain(cuda, L, d, b, r, n):
-    rng = np.random.default_rng(L + d + n)
-    items = leaf_items(rng, L, n, d, r, 14, cuda)
+def check_leaf_insert(items, L, d, b, r, nodes=None):
+    """K1 on fresh (or the given) matrices against the plain version, then
+    K2 continuing in place from the first leaf the kernel filled."""
+    dev = items[0].device
+    fresh = (lambda: tcm.make_nodes(L, d, b, dev)) if nodes is None \
+        else (lambda: tcm.NodeState(*(x.clone() for x in nodes)))
     before = tli.leaf_insert_batched.launches
-    got, got_sp = tli.leaf_insert_batched(tcm.make_nodes(L, d, b, cuda),
-                                          *items, r=r)
+    got, got_sp = tli.leaf_insert_batched(fresh(), *items, r=r)
     assert tli.leaf_insert_batched.launches == before + 1
-    want, want_sp = tli.leaf_insert_batched_plain(
-        tcm.make_nodes(L, d, b, cuda), *items, r=r)
+    want, want_sp = tli.leaf_insert_batched_plain(fresh(), *items, r=r)
     torch.cuda.synchronize()
     for name, g, w in zip(tcm.NodeState._fields, got, want):
         assert torch.equal(g, w), name
     assert torch.equal(got_sp, want_sp)
-    assert int(got_sp.sum()) > 0 or n < 700
-    # K2: the L = 1 launch, continuing in place from a filled matrix
     node = tcm.NodeState(*(x[0].clone() for x in got))
     node_p = tcm.NodeState(*(x[0].clone() for x in got))
     one = [x[0] for x in items]
@@ -76,14 +71,69 @@ def test_leaf_insert_kernel_matches_plain(cuda, L, d, b, r, n):
     for name, g, w in zip(tcm.NodeState._fields, node, node_p):
         assert torch.equal(g, w), name
     assert torch.equal(sp, sp_p)
+    return got, got_sp
 
 
-def probe_slabs(rng, cap, d, b, F, dev):
+@pytest.mark.parametrize("L,d,b,r,n", [(1, 16, 3, 4, 900),
+                                       (64, 16, 3, 4, 652),
+                                       (7, 8, 2, 2, 200),
+                                       (3, 32, 3, 1, 300),
+                                       # n not a multiple of the 32-item
+                                       # tile, and a single item
+                                       (5, 16, 3, 4, 33),
+                                       (2, 16, 3, 4, 1),
+                                       # b in {2, 3} x r in {1, 2, 4}
+                                       (9, 16, 2, 1, 97),
+                                       (9, 16, 2, 2, 161),
+                                       (9, 16, 2, 4, 400),
+                                       (9, 16, 3, 2, 250),
+                                       (6, 8, 3, 4, 333),
+                                       # the other slot counts it takes
+                                       (4, 8, 4, 2, 200),
+                                       (3, 8, 8, 1, 120)])
+def test_leaf_insert_kernel_matches_plain(cuda, L, d, b, r, n):
+    rng = np.random.default_rng(L + d + n)
+    items = leaf_items(rng, L, n, d, r, 14, cuda)
+    _, sp = check_leaf_insert(items, L, d, b, r)
+    assert int(sp.sum()) > 0 or n < 700
+
+
+@pytest.mark.parametrize("run", [2, 5, 32])
+def test_leaf_insert_kernel_consecutive_identical_items(cuda, run):
+    """Runs of identical items: item e+1 hits the slot item e just
+    claimed (or merged into), which the kernel patches in registers."""
+    L, d, b, r, n = 12, 8, 2, 4, 300
+    rng = np.random.default_rng(run)
+    items = leaf_items(rng, L, n, d, r, 14, "cpu")
+    src = np.arange(n) - np.arange(n) % run        # first item of each run
+    items = [x[:, src].contiguous() if i != 6 else x
+             for i, x in enumerate(items)]
+    got, sp = check_leaf_insert([x.to(cuda) for x in items], L, d, b, r)
+    placed = int((items[6].to(cuda) & (sp == 0)).sum())
+    assert int((got.fp_s != -1).sum()) < placed    # runs merged
+
+
+def test_leaf_insert_kernel_all_spill_leaf(cuda):
+    """Every slot of every bucket already holds another edge: each item
+    spills and the matrices stay as they were."""
+    L, d, b, r, n = 4, 16, 3, 4, 200
+    rng = np.random.default_rng(7)
+    items = leaf_items(rng, L, n, d, r, 14, cuda)
+    full = tcm.make_nodes(L, d, b, cuda)
+    full.fp_s.fill_(1 << 20)                       # no 14-bit fingerprint
+    full.fp_d.fill_(3)
+    full.w.fill_(2.5)
+    _, sp = check_leaf_insert(items, L, d, b, r, nodes=full)
+    assert torch.equal(sp, items[6].to(torch.int32))
+
+
+def probe_slabs(rng, cap, d, b, F, dev, float_w=False):
     shape = (cap, d, d, b)
     occ = rng.random(shape) < 0.5
     fp_s = np.where(occ, rng.integers(0, 1 << F, shape), -1)
     fp_d = np.where(occ, rng.integers(0, 1 << F, shape), -1)
-    w = np.where(occ, rng.integers(1, 100, shape), 0)
+    w = np.where(occ, rng.exponential(3.0, shape) if float_w
+                 else rng.integers(1, 100, shape), 0)
     t = rng.integers(0, 1000, shape)
     t[..., 0] |= 0x80000000                     # unsigned time bounds
     fields = (fp_s.astype(np.int32), fp_d.astype(np.int32),
@@ -127,6 +177,112 @@ def test_probe_kernels_match_plain(cuda, m, d, b, q, r, match_time, ts, te):
         want = tpr.vertex_probe_plain(slabs, t[0], t[1], fv, t[4], ts, te,
                                       **kw)
         assert torch.equal(got, want), direction
+
+
+def vertex_queries(rng, slabs, idx, direction, lines, r):
+    """Per query: the fingerprint of an occupied slot on its line (in a
+    random probed matrix), and r distinct candidate lines, that one
+    first."""
+    fp = (slabs.fp_s if direction == "out" else slabs.fp_d)[idx.long()]
+    fp = fp.cpu().numpy()
+    d, q = fp.shape[1], len(lines)
+    mi = rng.integers(0, len(idx), q)
+    fv = np.zeros(q, np.int32)
+    for k in range(q):
+        line = fp[mi[k], lines[k]] if direction == "out" \
+            else fp[mi[k], :, lines[k]]
+        occ = line[line != -1]
+        if len(occ):
+            fv[k] = occ[rng.integers(0, len(occ))]
+    step = rng.integers(1, max(d // r, 2), q)
+    rows = (lines[:, None] + np.arange(r)[None, :] * step[:, None]) % d
+    dev = slabs.fp_s.device
+    return (torch.from_numpy(fv).to(dev),
+            torch.from_numpy(rows.astype(np.int32)).to(dev))
+
+
+def check_vertex(rng, slabs, idx, mask, lines, r, ts, te, match_time,
+                 float_w=False):
+    for direction in ("out", "in"):
+        fv, rows = vertex_queries(rng, slabs, idx, direction, lines, r)
+        kw = dict(direction=direction, match_time=match_time)
+        got = tpr.vertex_probe(slabs, idx, mask, fv, rows, ts, te, **kw)
+        want = tpr.vertex_probe_plain(slabs, idx, mask, fv, rows, ts, te,
+                                      **kw)
+        if float_w:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(got, want), direction
+        assert (float(got.sum()) > 0) == bool(mask.any()) or match_time, \
+            direction
+
+
+def probed(rng, cuda, m, d, b, float_w=False):
+    slabs = probe_slabs(rng, m + 2, d, b, 12, cuda, float_w)
+    idx = torch.from_numpy(rng.permutation(m + 2)[:m].astype(np.int32))
+    return slabs, idx.to(cuda)
+
+
+@pytest.mark.parametrize("same_vertex", [True, False])
+def test_vertex_probe_kernel_all_queries_on_one_line(cuda, same_vertex):
+    """d = 1024, "out" and "in": every query's first candidate is the same
+    line (one hot line block split over many work units), as one vertex
+    or as many vertices whose first lines coincide."""
+    rng = np.random.default_rng(11 + same_vertex)
+    m, d, b, q, r = 2, 1024, 3, 1500, 4
+    slabs, idx = probed(rng, cuda, m, d, b)
+    lines = np.full(q, 517)
+    mask = torch.ones(m, dtype=torch.bool, device=cuda)
+    if same_vertex:
+        for direction in ("out", "in"):
+            fv, rows = vertex_queries(rng, slabs, idx, direction, lines[:1],
+                                      r)
+            fv, rows = fv.expand(q).contiguous(), rows.expand(q, r).clone()
+            kw = dict(direction=direction, match_time=False)
+            got = tpr.vertex_probe(slabs, idx, mask, fv, rows, 0, 0, **kw)
+            want = tpr.vertex_probe_plain(slabs, idx, mask, fv, rows, 0, 0,
+                                          **kw)
+            assert torch.equal(got, want), direction
+            assert float(got.min()) > 0 and bool((got == got[0]).all())
+    else:
+        check_vertex(rng, slabs, idx, mask, lines, r, 0, 0, False)
+
+
+@pytest.mark.parametrize("m,mask_bits", [(1, (1,)), (1, (0,)),
+                                         (4, (1, 0, 0, 1))])
+def test_vertex_probe_kernel_masked_matrices(cuda, m, mask_bits):
+    rng = np.random.default_rng(m * 10 + sum(mask_bits))
+    d, b, q, r = 64, 3, 300, 4
+    slabs, idx = probed(rng, cuda, m, d, b)
+    mask = torch.tensor(mask_bits, dtype=torch.bool, device=cuda)
+    check_vertex(rng, slabs, idx, mask, rng.integers(0, d, q), r, 0, 0,
+                 False)
+
+
+def test_vertex_probe_kernel_many_queries(cuda):
+    """More (query, candidate) pairs than one launch of the three kernels
+    takes (16,384): the wrapper's queries go through in chunks."""
+    rng = np.random.default_rng(5)
+    m, d, b, q, r = 3, 64, 3, 9000, 4
+    slabs, idx = probed(rng, cuda, m, d, b)
+    mask = torch.ones(m, dtype=torch.bool, device=cuda)
+    check_vertex(rng, slabs, idx, mask, rng.integers(0, d, q), r, 0, 0,
+                 False)
+
+
+@pytest.mark.parametrize("d", [16, 256, 1024])
+def test_vertex_probe_kernel_time_filter_float_weights(cuda, d):
+    """Non-integer weights: the kernel sums in another order than the
+    plain version, so rtol 1e-6 (as tests/test_kernels.py holds the
+    reference)."""
+    rng = np.random.default_rng(d)
+    m, b, q, r = 3, 3, 2048, 4
+    slabs, idx = probed(rng, cuda, m, d, b, float_w=True)
+    mask = torch.ones(m, dtype=torch.bool, device=cuda)
+    lines = rng.integers(0, d, q)
+    for ts, te in ((100, 700), (0, 0xFFFFFFFF)):
+        check_vertex(rng, slabs, idx, mask, lines, r, ts, te, True,
+                     float_w=True)
 
 
 def test_sketch_kernels_match_plain_end_to_end(cuda):

@@ -150,6 +150,41 @@ def test_leaf_insert_batched_plain_bit_exact(L, d, b, r, n):
         np.testing.assert_array_equal(got_sp.numpy()[l].astype(bool), sp_o)
 
 
+@pytest.mark.parametrize("L,d,b,r,n,run", [
+    (3, 8, 2, 2, 64, 4),
+    (2, 16, 3, 4, 96, 32),
+    (4, 4, 2, 2, 50, 3),     # tiny leaves: runs that spill
+])
+def test_leaf_insert_batched_plain_runs_of_identical_items(L, d, b, r, n,
+                                                           run):
+    """Leaves of repeated identical items: each item of a run merges into
+    the slot the run's first item claimed (or spills with it)."""
+    rng = np.random.default_rng(L * 10 + run)
+    items = list(insert_inputs(rng, (L, n), d, r, F=12, dup=False))
+    first = np.arange(n) - np.arange(n) % run
+    for i in (0, 1, 4, 5):                         # fs, fd, w, t
+        items[i] = np.ascontiguousarray(items[i][:, first])
+    for i in (2, 3):                               # rows, cols
+        items[i] = np.ascontiguousarray(items[i][:, first])
+    want, want_sp = leaf_insert_batched_pallas(
+        rcm.make_nodes(L, d, b), *(jnp.asarray(a) for a in items), r=r,
+        interpret=True)
+    got, got_sp = tli.leaf_insert_batched(tcm.make_nodes(L, d, b, "cpu"),
+                                          *torch_items(*items), r=r)
+    for name, g, wv in zip(FIELDS, as_ref(got), as_ref(want)):
+        np.testing.assert_array_equal(g, wv, err_msg=name)
+    np.testing.assert_array_equal(got_sp.numpy(), np.asarray(want_sp))
+    for l in range(L):                                    # Alg.-1 oracle
+        node_o, sp_o = rref.seq_insert_ref(rcm.make_node(d, b),
+                                           *(a[l] for a in items), b=b, r=r)
+        for name, g, wo in zip(FIELDS, as_ref(got), as_ref(node_o)):
+            np.testing.assert_array_equal(g[l], wo, err_msg=f"{l}/{name}")
+        np.testing.assert_array_equal(got_sp.numpy()[l].astype(bool), sp_o)
+    placed = items[6] & ~got_sp.numpy().astype(bool)
+    assert int((as_ref(got)[0] != np.uint32(REF_EMPTY)).sum()) \
+        < int(placed.sum())                            # runs merged
+
+
 def test_leaf_insert_updates_in_place_from_a_filled_node():
     """The kernels alias their matrices: a second call continues from the
     state the first left (the reference's input/output aliasing)."""
@@ -272,6 +307,60 @@ def test_vertex_probe_plain(m, d, b, q, r, direction, match_time, float_w):
     assert tpr.vertex_probe.launches == 0
     check_probe(got, want_p, float_w)
     check_probe(got, want_j, float_w)
+
+
+@pytest.mark.parametrize("direction", ["out", "in"])
+@pytest.mark.parametrize("match_time", [False, True])
+def test_vertex_probe_plain_many_queries_few_vertices(direction,
+                                                     match_time):
+    """Many queries on few vertices (the Zipf-drawn query sets, whose
+    candidate lines the kernel groups): 96 queries on 3 vertices."""
+    rng = np.random.default_rng(40 + int(match_time))
+    m, d, b, q, r, F = 3, 32, 3, 96, 4, 10
+    arrs, rows_ix, nodes, mask, fs, fd, rows, _ = probe_setup(
+        rng, m, d, b, q, r, F, False)
+    # three vertices, each planted on an occupied slot of matrix 0 (its
+    # line first among its candidates), then drawn for all q queries
+    occ = np.argwhere(arrs[0][rows_ix[0]] != REF_EMPTY)
+    hot = occ[rng.choice(len(occ), 3, replace=False)]
+    side = 0 if direction == "out" else 1
+    fv3 = arrs[side][rows_ix[0]][tuple(hot.T)]
+    line = hot[:, side]
+    rows3 = (line[:, None] + np.arange(r)[None, :] * 5) % d
+    pick = rng.integers(0, 3, q)
+    fv = fv3[pick]
+    rows = np.ascontiguousarray(rows3[pick].astype(np.int32))
+    ts, te = 200, 800
+    args = (jnp.asarray(mask), jnp.asarray(fv), jnp.asarray(rows))
+    want_p = np.asarray(_vertex_pallas(
+        nodes, *args, np.uint32(ts), np.uint32(te), direction=direction,
+        match_time=match_time))
+    want_j = np.asarray(_vertex_jnp(
+        nodes, *args, np.uint32(ts), np.uint32(te), direction=direction,
+        match_time=match_time))
+    got = tpr.vertex_probe(
+        to_torch(arrs), torch.from_numpy(rows_ix), torch.from_numpy(mask),
+        torch.from_numpy(fv.view(np.int32)), torch.from_numpy(rows), ts, te,
+        direction=direction, match_time=match_time).numpy()
+    np.testing.assert_array_equal(got, want_p)
+    np.testing.assert_array_equal(got, want_j)
+    assert len(np.unique(got)) <= 3 and (got.max() > 0 or match_time)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 512, 1024])
+def test_vertex_candidates_are_distinct(d):
+    """The r candidate lines of every vertex are distinct at every level
+    width (the LCG chain is full-period mod d = 2^k), so a line-grouped
+    probe counts each candidate line of a query once, as the reference's
+    one-hot form does; the port's chains equal the reference's."""
+    x0 = np.arange(d, dtype=np.uint32)
+    for r in (2, 4, 5):
+        want = np.asarray(rcm.chain_from_base(jnp.asarray(x0), r, d))
+        got = tcm.chain_from_base(torch.from_numpy(x0.astype(np.int64)), r,
+                                  d).numpy()
+        np.testing.assert_array_equal(got, want)
+        srt = np.sort(got, axis=1)
+        assert (srt[:, 1:] != srt[:, :-1]).all(), (d, r)
 
 
 def test_probe_time_bounds_compare_unsigned():
