@@ -22,16 +22,16 @@ kernels/csrc`` (into ``build/kernels/``), then:
    bit-exact pools and spill masks, exact probe sums (integer weights);
    then times each kernel back to back (``b2b_ms``: a group of launches
    enqueued behind a sleep kernel, so the wrappers' host work is off the
-   device's clock) and for one call, and measures the dependent round
-   trips that bound K1's sequential item chain;
+   device's clock), with a cold L2 (``cold_ms``: each launch timed on its
+   own after a read of a buffer five times the L2's size), and for one
+   call; and measures the dependent round trips that bound K1's
+   sequential item chain (``tools/chain_bench.cu``, built here);
 3. ingests a 1.1M-edge prefix twice, once through the kernels and once
    through the plain versions (``kernels=False``), and requires equal
    pools, overflow blocks and answers.
 
-``python3 chip_smoke.py --baseline DIR`` also builds ``leaf_insert.cu``
-and ``probe.cu`` from DIR (another commit's ``src/repro_torch/kernels/
-csrc``) and times them in turns with the current kernels (parent, new,
-new, parent) on the same inputs.
+To compare two commits, run this same script from a checkout of each:
+it times whichever kernels the checkout it sits in holds.
 
 The counts of kernel launches are set to 0 just before the main path and
 read just after it.  The line before the last is the card's name and
@@ -59,11 +59,13 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM peak (NVIDIA data sheet)
 B2B_N = 20                   # launches per back-to-back group
 B2B_GROUPS = 5
 B2B_SLEEP_MS = 8.0           # device sleep that covers a group's enqueue
+L2_FLUSH_BYTES = 256 << 20   # read before each cold launch (L2: 50 MB)
 CHAIN_ITERS = 1 << 20        # round trips of the chain microbenchmark
 HOT_VERTICES = 64            # the shared-lines phase: queries on <= 64
 DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
+CHAIN_SRC = REPO / "tools" / "chain_bench.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -101,6 +103,7 @@ def one_call_ms(torch, fn, reps: int, setup=None) -> float:
 
 
 SLEEP = {}                   # calibrated torch.cuda._sleep: cycles per ms
+FLUSH = {}                   # the buffer cold_ms reads between launches
 
 
 def calibrate_sleep(torch) -> None:
@@ -147,18 +150,36 @@ def b2b_ms(torch, fn, prepare=None, n: int = B2B_N, groups: int = B2B_GROUPS):
     return float(np.median(times)), covered
 
 
-def in_turns(torch, new, old, prepare=None):
-    """Back-to-back times of the new and the parent kernel in turns
-    (parent, new, new, parent).  Returns (new ms, parent ms or None,
-    covered), each the mean of its two readings."""
-    if old is None:
-        ms, cov = b2b_ms(torch, new, prepare)
-        return ms, None, cov
-    p1, c1 = b2b_ms(torch, old, prepare)
-    n1, c2 = b2b_ms(torch, new, prepare)
-    n2, c3 = b2b_ms(torch, new, prepare)
-    p2, c4 = b2b_ms(torch, old, prepare)
-    return (n1 + n2) / 2, (p1 + p2) / 2, c1 and c2 and c3 and c4
+def cold_ms(torch, fn, prepare=None, n: int = B2B_N, groups: int = 2):
+    """Device time of one launch with a cold L2: behind a sleep kernel, the
+    host enqueues, for each of ``n`` launches, a read of a buffer of
+    ``L2_FLUSH_BYTES`` (outside the timed window), an event, the call and
+    an event.  Median over ``groups * n`` launches; arguments as in
+    :func:`b2b_ms`.  Returns (ms, covered)."""
+    if "buf" not in FLUSH:
+        FLUSH["buf"] = torch.ones(L2_FLUSH_BYTES // 4, device=DEVICE)
+    flush = FLUSH["buf"]
+    args = prepare(0) if prepare is not None else ()
+    fn(*args)
+    torch.cuda.synchronize()
+    times, covered = [], True
+    for _ in range(groups):
+        args = [prepare(i) if prepare is not None else () for i in range(n)]
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(B2B_SLEEP_MS * SLEEP["cycles_per_ms"]))
+        h0 = time.perf_counter()
+        for (a, b), x in zip(evs, args):
+            flush.sum()
+            a.record()
+            fn(*x)
+            b.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        times += [a.elapsed_time(b) for a, b in evs]
+        covered &= host_ms < B2B_SLEEP_MS
+    return float(np.median(times)), covered
 
 
 def reset_counts(kmods) -> None:
@@ -287,24 +308,54 @@ def check_answers(stream, queries, results):
     return are
 
 
-def chain_bench(torch, lib) -> dict:
-    """The dependent round trip that bounds K1's item chain, on one warp
-    (``higgs_leaf_chain_bench``): mode 0 is a shared-memory read, a
-    ballot and a shared-memory write of the slot the next read takes;
-    mode 1 a ballot, a find-first-set and a shuffle.  ns and SM cycles
-    per round trip, and the SM clock they imply."""
+def start_chain_build():
+    """Start ``nvcc`` on ``tools/chain_bench.cu`` (beside the kernels'
+    builds); returns (library path, process or None if already built)."""
+    import hashlib
+
     from repro_torch.kernels import _build
+    tag = hashlib.sha1(CHAIN_SRC.read_bytes()).hexdigest()[:12]
+    lib = _build.BUILD_DIR.parent / "tools" / f"chain_bench-{tag}.so"
+    if lib.exists():
+        return lib, None
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                             str(tmp), str(CHAIN_SRC)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return lib, (tmp, proc)
+
+
+def chain_bench(torch, lib_path, build) -> dict:
+    """The dependent round trips that bound K1's item chain, on one warp:
+    mode 0 is a shared-memory read, a ballot and a shared-memory write of
+    the word the next read takes; mode 1 a ballot, a find-first-set and a
+    shuffle, the chain of ``leaf_insert_kernel``.  ns and SM cycles per
+    round trip, and the SM clock they imply."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    if build is not None:
+        tmp, proc = build
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"tools/chain_bench.cu did not "
+                f"build:\n{log}")
+        os.replace(tmp, lib_path)
+    fn = ctypes.CDLL(str(lib_path)).chain_bench
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     out = torch.zeros(2, dtype=torch.int64, device=DEVICE)
     res = {}
     for mode, name in ((0, "smem_ballot_smem"), (1, "ballot_shfl")):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.higgs_leaf_chain_bench(mode, 1024, out.data_ptr(),
-                                                stream), "chain_bench")
+        _build.check(fn(mode, 1024, out.data_ptr(), stream), "chain_bench")
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        _build.check(lib.higgs_leaf_chain_bench(
-            mode, CHAIN_ITERS, out.data_ptr(), stream), "chain_bench")
+        _build.check(fn(mode, CHAIN_ITERS, out.data_ptr(), stream),
+                     "chain_bench")
         b.record()
         b.synchronize()
         ns = a.elapsed_time(b) * 1e6 / CHAIN_ITERS
@@ -315,11 +366,11 @@ def chain_bench(torch, lib) -> dict:
     return res
 
 
-def k1_k2_phase(torch, tcm, li, captured, parent, chain):
+def k1_k2_phase(torch, tcm, li, captured, chain):
     """K1 on the inputs of the main path's first drain (fresh leaves, as
     the drain had them), K2 on its first leaf: bit-exact against the
-    plain versions, then timed back to back (a fresh copy of the matrices
-    per launch), for one call, and against the parent's kernel."""
+    plain versions, then timed back to back and cold (a fresh copy of the
+    matrices per launch) and for one call."""
     L, d, _, b = captured["shape"]
     r = captured["r"]
     items = captured["items"]
@@ -346,24 +397,17 @@ def k1_k2_phase(torch, tcm, li, captured, parent, chain):
                     f"the plain version")
         require(torch.equal(ks, ps), f"{name}: spill mask differs")
         err = float((kn.w - pn.w).abs().max())
-        old = None
-        if parent is not None:
-            old = getattr(parent, name)
-            on, osp = old(fresh(), *its, r=r)
-            torch.cuda.synchronize()
-            require(all(torch.equal(a, c) for a, c in zip(on, pn)) and
-                    torch.equal(osp, ps), f"{name}: the parent's kernel "
-                    f"differs from the plain version")
         box = {}
 
         def setup(fresh=fresh):
             box["nodes"] = fresh()
 
-        ms, parent_ms, covered = in_turns(
-            torch, lambda nodes, kern=kern: kern(nodes, *its, r=r),
-            None if old is None else
-            (lambda nodes, old=old: old(nodes, *its, r=r)),
-            prepare=lambda i, fresh=fresh: (fresh(),))
+        def launch(nodes, kern=kern):
+            kern(nodes, *its, r=r)
+
+        ms, covered = b2b_ms(torch, launch, lambda i, f=fresh: (f(),))
+        cold, cov2 = cold_ms(torch, launch, lambda i, f=fresh: (f(),))
+        covered &= cov2
         one = one_call_ms(torch, lambda: kern(box["nodes"], *its, r=r), 10,
                           setup=setup)
         plain_ms = one_call_ms(torch, lambda: plain(box["nodes"], *its,
@@ -372,21 +416,21 @@ def k1_k2_phase(torch, tcm, li, captured, parent, chain):
         nbytes = (L_ * n * (4 * 4 + 1 + 2 * 4 * r + 4)   # items in, spill out
                   + 2 * cells * 20)                      # matrices in + out
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        # items of a leaf are sequential: n dependent round trips at least
-        chain_ms = {k: n * v["ns"] * 1e-6 for k, v in chain.items()}
-        out[name] = dict(L=L_, n=n, ms=ms, one_call_ms=one,
-                         parent_ms=parent_ms, covered=covered,
-                         plain_ms=plain_ms, bound_ms=bound,
-                         chain_bound_ms=chain_ms, max_abs_err=err,
-                         spilled=int(ks.sum()))
-        par = "" if parent_ms is None else f", parent {parent_ms:.4f} ms " \
-            f"back to back ({parent_ms / ms:.2f}x)"
+        # items of a leaf are sequential: n dependent round trips at least,
+        # each a ballot, a find-first-set and a shuffle in this kernel
+        chain_ms = n * chain["ballot_shfl"]["ns"] * 1e-6
+        smem_ms = n * chain["smem_ballot_smem"]["ns"] * 1e-6
+        out[name] = dict(L=L_, n=n, ms=ms, cold_ms=cold, one_call_ms=one,
+                         covered=covered, plain_ms=plain_ms, bound_ms=bound,
+                         chain_bound_ms=chain_ms, smem_chain_ms=smem_ms,
+                         max_abs_err=err, spilled=int(ks.sum()))
         print(f"phase {name}: L={L_} n={n} d={d} b={b} r={r} bit-exact vs "
-              f"plain; kernel {ms:.4f} ms back to back (covered={covered})"
-              f"{par}, one call {one:.4f} ms, plain {plain_ms:.1f} ms, "
-              f"bound {bound:.4f} ms (bytes), chain bound "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in chain_ms.items())
-              + f", {out[name]['spilled']} items spilled", flush=True)
+              f"plain; kernel {ms:.4f} ms back to back, {cold:.4f} ms cold "
+              f"(covered={covered}), one call {one:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {bound:.4f} ms (bytes), chain "
+              f"bound {chain_ms:.4f} ms (ballot-shuffle; {smem_ms:.4f} ms "
+              f"with a shared-memory round trip per item), "
+              f"{out[name]['spilled']} items spilled", flush=True)
     return out
 
 
@@ -403,7 +447,7 @@ def vertex_bound_ms(torch, idx, vrows, d, b):
 
 
 def new_sums():
-    return dict(ms=0.0, one_call_ms=0.0, parent_ms=0.0, plain_ms=0.0,
+    return dict(ms=0.0, cold_ms=0.0, one_call_ms=0.0, plain_ms=0.0,
                 bound_ms=0.0, max_abs_err=0.0, covered=True)
 
 
@@ -415,25 +459,25 @@ def add_to(tot, **v):
             tot[k] += x
 
 
-def timed_probe(torch, new, old, plain, tag, bound, tot):
-    """Back to back in turns with the parent, one call, plain; printed
-    and added to ``tot``."""
-    ms, parent_ms, covered = in_turns(torch, new, old)
+def timed_probe(torch, new, plain, tag, bound, tot):
+    """Back to back, cold, one call, plain; printed and added to
+    ``tot``."""
+    ms, covered = b2b_ms(torch, new)
+    cold, cov2 = cold_ms(torch, new)
+    covered &= cov2
     one = one_call_ms(torch, new, 10)
     plain_ms = one_call_ms(torch, plain, 2)
-    par = "" if parent_ms is None else f", parent {parent_ms:.4f} ms " \
-        f"({parent_ms / ms:.2f}x)"
-    print(f"phase {tag}: exact vs plain; kernel {ms:.4f} ms back to back "
-          f"(covered={covered}){par}, one call {one:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound:.4f} ms", flush=True)
-    row = dict(ms=ms, one_call_ms=one, parent_ms=parent_ms,
-               plain_ms=plain_ms, bound_ms=bound, covered=covered)
+    print(f"phase {tag}: exact vs plain; kernel {ms:.4f} ms back to back, "
+          f"{cold:.4f} ms cold (covered={covered}), one call {one:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms", flush=True)
+    row = dict(ms=ms, cold_ms=cold, one_call_ms=one, plain_ms=plain_ms,
+               bound_ms=bound, covered=covered)
     if tot is not None:
         add_to(tot, **row)
     return row
 
 
-def probe_phase(torch, tcm, pr, sk, queries, parent):
+def probe_phase(torch, tcm, pr, sk, queries):
     p = sk.params
     e_src, e_dst, v_out, v_in = queries
     dev = sk.device
@@ -478,8 +522,6 @@ def probe_phase(torch, tcm, pr, sk, queries, parent):
             kw = dict(match_time=match_time)
             row = timed_probe(
                 torch, lambda: pr.edge_probe(*args, **kw),
-                None if parent is None else
-                (lambda: parent.edge_probe(*args, **kw)),
                 lambda: pr.edge_probe_plain(*args, **kw),
                 f"edge_probe L{level} d={d} m={m} q={Q} match_time="
                 f"{match_time} ({int((got > 0).sum())} nonzero)",
@@ -495,14 +537,8 @@ def probe_phase(torch, tcm, pr, sk, queries, parent):
                 want = pr.vertex_probe_plain(*vargs, **kw)
                 require(torch.equal(got, want), f"vertex_probe L{level} "
                         f"{direction} match_time={match_time}: differs")
-                if parent is not None:
-                    require(torch.equal(parent.vertex_probe(*vargs, **kw),
-                                        want), "the parent's vertex_probe "
-                            "differs from plain")
                 row = timed_probe(
                     torch, lambda: pr.vertex_probe(*vargs, **kw),
-                    None if parent is None else
-                    (lambda: parent.vertex_probe(*vargs, **kw)),
                     lambda: pr.vertex_probe_plain(*vargs, **kw),
                     f"vertex_probe L{level} {direction} d={d} m={m} q={Q} "
                     f"match_time={match_time}",
@@ -514,7 +550,7 @@ def probe_phase(torch, tcm, pr, sk, queries, parent):
     return tot, levels
 
 
-def shared_lines_phase(torch, tcm, pr, sk, stream, parent):
+def shared_lines_phase(torch, tcm, pr, sk, stream):
     """K4 with heavily shared lines: all Q queries fall on the stream's
     first HOT_VERTICES distinct sources ("out") or destinations ("in"),
     at every level, without the time filter."""
@@ -546,8 +582,6 @@ def shared_lines_phase(torch, tcm, pr, sk, stream, parent):
             nlines = int(torch.unique(vrows).numel())
             row = timed_probe(
                 torch, lambda: pr.vertex_probe(*vargs, **kw),
-                None if parent is None else
-                (lambda: parent.vertex_probe(*vargs, **kw)),
                 lambda: pr.vertex_probe_plain(*vargs, **kw),
                 f"vertex_probe shared lines L{level} {direction} d={d} "
                 f"q={Q} on {len(hot)} vertices, {nlines} distinct lines",
@@ -667,107 +701,6 @@ def profile_phase(torch, api, stream, sk, queries):
                 host_query=host_query)
 
 
-class ParentKernels:
-    """Another commit's kernels (``leaf_insert.cu`` and ``probe.cu`` from
-    the directory given with ``--baseline``), built with the same flags
-    and called through the C signatures they had at the port's first
-    slice, so the current kernels can be timed in turns with them on the
-    same inputs.  Never counted, never on the main path."""
-
-    SIGNATURES = {
-        "leaf_insert": {"higgs_leaf_insert": ["p"] * 13 + ["i"] * 5 + ["p"]},
-        "probe": {
-            "higgs_edge_probe": ["p"] * 10 + ["u", "u", "i", "p"]
-            + ["i"] * 5 + ["p"],
-            "higgs_vertex_probe": ["p"] * 7 + ["u", "u", "i", "i", "p"]
-            + ["i"] * 5 + ["p"],
-        },
-    }
-
-    def __init__(self, torch, src_dir: Path):
-        import ctypes
-        import hashlib
-
-        from repro_torch.kernels import _build
-        self.torch, self._build = torch, _build
-        ct = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint}
-        out_dir = _build.BUILD_DIR.parent / "parent"
-        out_dir.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name in self.SIGNATURES:
-            src = src_dir / f"{name}.cu"
-            tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-            lib = out_dir / f"{name}-{tag}.so"
-            procs[name] = (lib, None if lib.exists() else subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                 str(src)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        self.libs = {}
-        for name, (lib, proc) in procs.items():
-            if proc is not None:
-                log, _ = proc.communicate()
-                require(proc.returncode == 0, f"parent {name}.cu did not "
-                        f"build:\n{log}")
-            self.libs[name] = ctypes.CDLL(str(lib))
-            for fn, sig in self.SIGNATURES[name].items():
-                getattr(self.libs[name], fn).argtypes = [ct[c] for c in sig]
-                getattr(self.libs[name], fn).restype = ctypes.c_int
-
-    def _stream(self):
-        return self.torch.cuda.current_stream().cuda_stream
-
-    def leaf_insert_batched(self, nodes, fs, fd, rows, cols, w, t, valid, *,
-                            r):
-        L, n = fs.shape
-        d, b = nodes.fp_s.shape[1], nodes.fp_s.shape[3]
-        spill = self.torch.empty((L, n), dtype=self.torch.int32,
-                                 device=fs.device)
-        rc = self.libs["leaf_insert"].higgs_leaf_insert(
-            *(x.data_ptr() for x in (*nodes, fs, fd, w, t, valid, rows,
-                                     cols, spill)),
-            L, n, d, b, r, self._stream())
-        self._build.check(rc, "parent leaf_insert")
-        return nodes, spill
-
-    def leaf_insert(self, node, fs, fd, rows, cols, w, t, valid, *, r):
-        nodes = type(node)(*(x[None] for x in node))
-        _, spill = self.leaf_insert_batched(
-            nodes, fs[None], fd[None], rows[None], cols[None], w[None],
-            t[None], valid[None], r=r)
-        return node, spill[0]
-
-    def edge_probe(self, slabs, idx, mask, fs, fd, rows, cols, ts, te, *,
-                   match_time):
-        m, q, d, b, r = len(idx), rows.shape[0], slabs.fp_s.shape[1], \
-            slabs.fp_s.shape[3], rows.shape[1]
-        out = self.torch.empty((q,), dtype=self.torch.float32,
-                               device=fs.device)
-        rc = self.libs["probe"].higgs_edge_probe(
-            *(x.data_ptr() for x in (slabs.fp_s, slabs.fp_d, slabs.w,
-                                     slabs.t, idx, mask, fs, fd, rows,
-                                     cols)),
-            ts & 0xFFFFFFFF, te & 0xFFFFFFFF, int(match_time),
-            out.data_ptr(), m, q, d, b, r, self._stream())
-        self._build.check(rc, "parent edge_probe")
-        return out
-
-    def vertex_probe(self, slabs, idx, mask, fv, rows, ts, te, *, direction,
-                     match_time):
-        m, q, d, b, r = len(idx), rows.shape[0], slabs.fp_s.shape[1], \
-            slabs.fp_s.shape[3], rows.shape[1]
-        fp = slabs.fp_s if direction == "out" else slabs.fp_d
-        out = self.torch.empty((q,), dtype=self.torch.float32,
-                               device=fv.device)
-        rc = self.libs["probe"].higgs_vertex_probe(
-            *(x.data_ptr() for x in (fp, slabs.w, slabs.t, idx, mask, fv,
-                                     rows)),
-            ts & 0xFFFFFFFF, te & 0xFFFFFFFF, int(match_time),
-            int(direction == "in"), out.data_ptr(), m, q, d, b, r,
-            self._stream())
-        self._build.check(rc, "parent vertex_probe")
-        return out
-
-
 def write_report(report: dict) -> None:
     OUT.mkdir(exist_ok=True)
     tmp = OUT / f".chip_smoke.{os.getpid()}.json"
@@ -776,7 +709,7 @@ def write_report(report: dict) -> None:
     os.replace(tmp, OUT / "chip_smoke.json")
 
 
-def run(torch, baseline: Path | None = None) -> dict:
+def run(torch) -> dict:
     from repro_torch import EdgeQuery, HiggsParams, HiggsSketch, VertexQuery
     from repro_torch.core import cmatrix as tcm
     from repro_torch.kernels import _build
@@ -789,6 +722,7 @@ def run(torch, baseline: Path | None = None) -> dict:
                pr.vertex_probe)
     t0 = time.perf_counter()
     print(card_line(), flush=True)
+    chain_lib = start_chain_build()
     build_s = _build.build_all()
     print(f"build: {len(_build.SOURCES)} sources in {build_s:.1f} s "
           f"(nvcc, sm_90a, into {_build.BUILD_DIR}"
@@ -797,12 +731,6 @@ def run(torch, baseline: Path | None = None) -> dict:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    parent = None
-    if baseline is not None:
-        t1 = time.perf_counter()
-        parent = ParentKernels(torch, baseline)
-        print(f"parent kernels from {baseline} built in "
-              f"{time.perf_counter() - t1:.1f} s", flush=True)
     calibrate_sleep(torch)
     t1 = time.perf_counter()
     stream = wiki_talk_like_stream(N_EDGES, seed=STREAM_SEED)
@@ -831,19 +759,15 @@ def run(torch, baseline: Path | None = None) -> dict:
               f"exact > 0", flush=True)
     stats = {f"{k}/{n}": s.__dict__ for (k, n), (_, s) in results.items()}
 
-    chain = chain_bench(torch, _build.library("leaf_insert"))
-    k12 = k1_k2_phase(torch, tcm, li, captured, parent, chain)
-    k34, probe_levels = probe_phase(torch, tcm, pr, sk, queries, parent)
-    shared, shared_levels = shared_lines_phase(torch, tcm, pr, sk, stream,
-                                               parent)
+    chain = chain_bench(torch, *chain_lib)
+    k12 = k1_k2_phase(torch, tcm, li, captured, chain)
+    k34, probe_levels = probe_phase(torch, tcm, pr, sk, queries)
+    shared, shared_levels = shared_lines_phase(torch, tcm, pr, sk, stream)
     for name, tot in (*k34.items(), ("vertex_probe_shared", shared)):
-        par = "" if parent is None else \
-            f", parent {tot['parent_ms']:.4f} ms " \
-            f"({tot['parent_ms'] / tot['ms']:.2f}x)"
         print(f"sum over levels {name}: kernel {tot['ms']:.4f} ms back to "
-              f"back{par}, one call {tot['one_call_ms']:.4f} ms, plain "
-              f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms",
-              flush=True)
+              f"back, {tot['cold_ms']:.4f} ms cold, one call "
+              f"{tot['one_call_ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, "
+              f"bound {tot['bound_ms']:.4f} ms", flush=True)
     prof = profile_phase(torch, api, stream, sk, queries)
     del sk
     torch.cuda.empty_cache()
@@ -865,8 +789,7 @@ def run(torch, baseline: Path | None = None) -> dict:
                     max_abs_err=m["max_abs_err"], ms=m["ms"],
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                     bound_by="bytes", library_ms=None,
-                    one_call_ms=m["one_call_ms"],
-                    parent_ms=m["parent_ms"] if parent else None,
+                    cold_ms=m["cold_ms"], one_call_ms=m["one_call_ms"],
                     chain_bound_ms=m.get("chain_bound_ms"))
                for name, f, rep, m in rows]
     report = dict(kernels=kernels, k1_k2=k12, chain=chain, probes=k34,
@@ -874,7 +797,6 @@ def run(torch, baseline: Path | None = None) -> dict:
                   shared_lines_levels=shared_levels, profile=prof,
                   answers=are, query_stats=stats, ingest_s=ingest_s,
                   query_s=q_s, peak_bytes=peak,
-                  baseline=None if baseline is None else str(baseline),
                   total_s=time.perf_counter() - t0)
     write_report(report)
     return {"kernels": kernels}
@@ -894,21 +816,12 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
-    baseline = None
-    if len(sys.argv) == 3 and sys.argv[1] == "--baseline":
-        baseline = Path(sys.argv[2]).resolve()
-        if not all((baseline / f).is_file() for f in ("leaf_insert.cu",
-                                                      "probe.cu")):
-            print(f"chip_smoke: {baseline} lacks leaf_insert.cu/probe.cu",
-                  file=sys.stderr)
-            return 2
-    elif len(sys.argv) > 1:
-        print("usage: python3 chip_smoke.py [--baseline CSRC_DIR]",
-              file=sys.stderr)
+    if len(sys.argv) > 1:
+        print("usage: python3 chip_smoke.py", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
     try:
-        summary = run(torch, baseline)
+        summary = run(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -34,7 +34,6 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     "leaf_insert": {
         "higgs_leaf_insert": [_P] * 13 + [_I] * 5 + [_P],
-        "higgs_leaf_chain_bench": [_I, _I, _P, _P],
     },
     "probe": {
         "higgs_edge_probe": [_P] * 10 + [_U, _U, _I, _P] + [_I] * 5 + [_P],

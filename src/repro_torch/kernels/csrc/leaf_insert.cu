@@ -43,8 +43,10 @@
 // a match or a free slot wins, a match beating a free slot within its
 // bucket), arrival order, and one __fadd_rn per item into the chosen slot.
 //
-// higgs_leaf_chain_bench measures the dependent round trips that bound
-// such a chain (see chip_smoke.py); it is not on the sketch's path.
+// Other shapes (b > 8 or r*r > 32) take leaf_insert_any_kernel, the same
+// semantics without the register pipeline: the item's buckets are walked in
+// groups of 32 (one per lane) against a structure-of-arrays matrix in
+// shared memory, one item at a time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -219,38 +221,113 @@ __global__ void __launch_bounds__(32) leaf_insert_kernel(
   }
 }
 
-// Dependent round trips of one warp, `iters` times (mode 0: shared-memory
-// read -> ballot -> shared-memory write of the slot the next read takes;
-// mode 1: ballot -> find-first-set -> shuffle).  out[0] gets the SM cycles
-// of the loop.
-template <int MODE>
-__global__ void chain_bench_kernel(int iters, long long* out) {
-  __shared__ int s[64];
+// Any b and r: lane k of a group tests bucket g + k (all b slots) against
+// the shared-memory matrix; the first group whose ballot is nonzero takes
+// the item, at its lowest lane.  Item fields are staged 32 at a time.
+__global__ void __launch_bounds__(32) leaf_insert_any_kernel(
+    int32_t* __restrict__ fp_s, int32_t* __restrict__ fp_d,
+    float* __restrict__ w_m, int32_t* __restrict__ t_m,
+    int32_t* __restrict__ idx_m, const int32_t* __restrict__ fs,
+    const int32_t* __restrict__ fd, const float* __restrict__ w,
+    const int32_t* __restrict__ t, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ cols,
+    int32_t* __restrict__ spill, int n, int d, int b, int r) {
+  extern __shared__ int32_t smem[];
+  const int cells = d * d * b;
+  int32_t* s_fps = smem;
+  int32_t* s_fpd = s_fps + cells;
+  int32_t* s_t = s_fpd + cells;
+  int32_t* s_idx = s_t + cells;
+  float* s_w = reinterpret_cast<float*>(s_idx + cells);
+  int32_t* q_fs = reinterpret_cast<int32_t*>(s_w + cells);
+  int32_t* q_fd = q_fs + kTile;
+  int32_t* q_t = q_fd + kTile;
+  int32_t* q_v = q_t + kTile;
+  float* q_w = reinterpret_cast<float*>(q_v + kTile);
+  int32_t* q_rows = reinterpret_cast<int32_t*>(q_w + kTile);
+  int32_t* q_cols = q_rows + kTile * r;
   const int lane = threadIdx.x;
-  s[lane] = lane * 7 + 1;
-  s[lane + 32] = lane * 3 + 2;
+  const size_t leaf = blockIdx.x;
+  const size_t moff = leaf * cells;
+  for (int c = lane; c < cells; c += 32) {
+    s_fps[c] = fp_s[moff + c];
+    s_fpd[c] = fp_d[moff + c];
+    s_t[c] = t_m[moff + c];
+    s_idx[c] = idx_m[moff + c];
+    s_w[c] = w_m[moff + c];
+  }
   __syncwarp();
-  int a = 0, acc = lane;
-  const long long c0 = clock64();
-  for (int i = 0; i < iters; ++i) {
-    if (MODE == 0) {
-      const int x = s[a];
-      const unsigned bal = __ballot_sync(kFull, ((x >> (lane & 7)) ^ lane) & 1);
-      const int nxt = (__ffs(bal | 0x80000000u) + i) & 63;
-      if (lane == 0) s[nxt] = x + (int)bal;
-      __syncwarp();
-      a = nxt;
-    } else {
-      const unsigned bal =
-          __ballot_sync(kFull, ((acc >> (lane & 7)) ^ lane) & 1);
-      acc = __shfl_sync(kFull, acc + i, __ffs(bal | 0x80000000u) - 1);
+  const int rr = r * r;
+  for (int e0 = 0; e0 < n; e0 += kTile) {
+    const int cnt = min(kTile, n - e0);
+    const size_t it0 = leaf * n + e0;
+    if (lane < cnt) {
+      q_fs[lane] = fs[it0 + lane];
+      q_fd[lane] = fd[it0 + lane];
+      q_t[lane] = t[it0 + lane];
+      q_w[lane] = w[it0 + lane];
+      q_v[lane] = valid[it0 + lane];
     }
+    for (int c = lane; c < cnt * r; c += 32) {
+      q_rows[c] = rows[it0 * r + c];
+      q_cols[c] = cols[it0 * r + c];
+    }
+    __syncwarp();
+    int my_spill = 0;
+    for (int e = 0; e < cnt; ++e) {
+      if (!q_v[e]) continue;              // warp-uniform
+      const int32_t f_s = q_fs[e], f_d = q_fd[e], tv = q_t[e];
+      const float wv = q_w[e];
+      bool done = false;
+      for (int g = 0; g < rr && !done; g += 32) {
+        const int k = g + lane;
+        int mslot = -1, eslot = -1, base = 0;
+        if (k < rr) {
+          base = (q_rows[e * r + k / r] * d + q_cols[e * r + k % r]) * b;
+          for (int s = 0; s < b; ++s) {
+            const int32_t x = s_fps[base + s];
+            if (mslot < 0 && x != kEmpty && x == f_s &&
+                s_fpd[base + s] == f_d && s_t[base + s] == tv)
+              mslot = s;
+            if (eslot < 0 && x == kEmpty) eslot = s;
+          }
+        }
+        const unsigned ok = __ballot_sync(kFull, mslot >= 0 || eslot >= 0);
+        done = ok != 0u;
+        if (done && lane == __ffs(ok) - 1) {
+          const int c = base + (mslot >= 0 ? mslot : eslot);
+          if (mslot < 0) {
+            s_fps[c] = f_s;
+            s_fpd[c] = f_d;
+            s_t[c] = tv;
+            s_idx[c] = k;
+          }
+          s_w[c] = __fadd_rn(s_w[c], wv);
+        }
+      }
+      if (lane == e) my_spill = !done;
+      __syncwarp();
+    }
+    if (lane < cnt) spill[it0 + lane] = my_spill;
+    __syncwarp();
   }
-  const long long c1 = clock64();
-  if (lane == 0) {
-    out[0] = c1 - c0;
-    out[1] = a + acc;                   // keeps the chain live
+  for (int c = lane; c < cells; c += 32) {
+    fp_s[moff + c] = s_fps[c];
+    fp_d[moff + c] = s_fpd[c];
+    t_m[moff + c] = s_t[c];
+    idx_m[moff + c] = s_idx[c];
+    w_m[moff + c] = s_w[c];
   }
+}
+
+// cudaFuncSetAttribute once per process and size
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem, size_t& configured) {
+  if (smem <= configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) configured = smem;
+  return err;
 }
 
 template <int B>
@@ -259,14 +336,9 @@ int launch(size_t smem, int L, int n, int d, int r, cudaStream_t stream,
            const void* fs, const void* fd, const void* w, const void* t,
            const void* valid, const void* rows, const void* cols,
            void* spill) {
-  static size_t configured = 0;         // once per process and size
-  if (smem > configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        leaf_insert_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = smem;
-  }
+  static size_t configured = 0;
+  const cudaError_t err = allow_smem(leaf_insert_kernel<B>, smem, configured);
+  if (err != cudaSuccess) return (int)err;
   leaf_insert_kernel<B><<<L, 32, smem, stream>>>(
       (int32_t*)fp_s, (int32_t*)fp_d, (float*)w_m, (int32_t*)t_m,
       (int32_t*)idx_m, (const int32_t*)fs, (const int32_t*)fd,
@@ -277,22 +349,33 @@ int launch(size_t smem, int L, int n, int d, int r, cudaStream_t stream,
 
 }  // namespace
 
-extern "C" size_t higgs_leaf_insert_smem(int d, int b) {
-  return (size_t)d * d * b * (16 + 4);
-}
-
 // Returns a cudaError_t (0 on success); launches on `stream`, no sync.
-// Takes 1 <= b <= 8 and r*r <= 32 (cudaErrorInvalidValue otherwise).
+// b <= 8 and r*r <= 32 take leaf_insert_kernel<b>, any other shape
+// leaf_insert_any_kernel.
 extern "C" int higgs_leaf_insert(
     void* fp_s, void* fp_d, void* w_m, void* t_m, void* idx_m,
     const void* fs, const void* fd, const void* w, const void* t,
     const void* valid, const void* rows, const void* cols, void* spill,
     int L, int n, int d, int b, int r, void* stream) {
   if (L <= 0) return 0;
-  if (b < 1 || b > kMaxB || r < 1 || r * r > 32)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = higgs_leaf_insert_smem(d, b);
+  if (b < 1 || r < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (b > kMaxB || r * r > 32) {
+    const size_t smem =
+        (size_t)d * d * b * 5 * 4 + (size_t)kTile * (5 + 2 * r) * 4;
+    static size_t configured = 0;
+    const cudaError_t err =
+        allow_smem(leaf_insert_any_kernel, smem, configured);
+    if (err != cudaSuccess) return (int)err;
+    leaf_insert_any_kernel<<<L, 32, smem, s>>>(
+        (int32_t*)fp_s, (int32_t*)fp_d, (float*)w_m, (int32_t*)t_m,
+        (int32_t*)idx_m, (const int32_t*)fs, (const int32_t*)fd,
+        (const float*)w, (const int32_t*)t, (const uint8_t*)valid,
+        (const int32_t*)rows, (const int32_t*)cols, (int32_t*)spill, n, d, b,
+        r);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)d * d * b * (16 + 4);
 #define HIGGS_LEAF_CASE(B)                                                 \
   case B:                                                                  \
     return launch<B>(smem, L, n, d, r, s, fp_s, fp_d, w_m, t_m, idx_m, fs, \
@@ -309,14 +392,4 @@ extern "C" int higgs_leaf_insert(
   }
 #undef HIGGS_LEAF_CASE
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int higgs_leaf_chain_bench(int mode, int iters, void* out,
-                                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (mode == 0)
-    chain_bench_kernel<0><<<1, 32, 0, s>>>(iters, (long long*)out);
-  else
-    chain_bench_kernel<1><<<1, 32, 0, s>>>(iters, (long long*)out);
-  return (int)cudaGetLastError();
 }

@@ -109,7 +109,6 @@ constexpr int kSeg = 1024;       // pairs per prep CTA (one per thread)
 constexpr int kMaxSegs = 16;     // prep CTAs per launch
 constexpr int kMaxPairs = kSeg * kMaxSegs;   // pairs per launch
 constexpr int kHash = 2 * kSeg;
-constexpr int kMaxR = 8;         // candidates per query the kernel takes
 
 __host__ __device__ __forceinline__ int stage_pitch(int b) {
   // words per staged line: a multiple of 4 (16-byte loads) that is 4 mod
@@ -342,15 +341,11 @@ __global__ void vertex_sum_kernel(const float* __restrict__ partial,
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   if (qi >= q) return;
   const size_t P = (size_t)q * r;
-  int src[kMaxR];
-#pragma unroll
-  for (int i = 0; i < kMaxR; ++i) src[i] = i < r ? rep_of[qi * r + i] : 0;
+  const int32_t* src = rep_of + (size_t)qi * r;
   float acc = 0.f;
   for (int mi = 0; mi < m; ++mi) {
     if (!mask[mi]) continue;
-#pragma unroll
-    for (int i = 0; i < kMaxR; ++i)
-      if (i < r) acc += partial[mi * P + src[i]];
+    for (int i = 0; i < r; ++i) acc += partial[mi * P + src[i]];
   }
   out[qi] = acc;
 }
@@ -417,14 +412,14 @@ extern "C" size_t higgs_vertex_probe_workspace(int m, int q, int d,
 }
 
 // `ws` holds higgs_vertex_probe_workspace(m, q, d, r) int32 words.
-// Takes r <= kMaxR and b <= kStage (cudaErrorInvalidValue otherwise).
+// Takes b <= kStage and r <= kMaxPairs (cudaErrorInvalidValue otherwise).
 extern "C" int higgs_vertex_probe(
     const void* fp, const void* w, const void* t, const void* idx,
     const void* mask, const void* fv, const void* rows, unsigned int ts,
     unsigned int te, int match_time, int dir_in, void* out, void* ws_base,
     int m, int q, int d, int b, int r, void* stream) {
   if (q <= 0) return 0;
-  if (b < 1 || b > kStage || r < 1 || r > kMaxR)
+  if (b < 1 || b > kStage || r < 1 || r > kMaxPairs)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   size_t words = 0;

@@ -108,9 +108,6 @@ def _launch(nodes: NodeState, fs, fd, rows, cols, w, t, valid, r: int):
     _check(nodes, fs, fd, rows, cols, w, t, valid, r)
     L, n = fs.shape
     d, b = nodes.fp_s.shape[1], nodes.fp_s.shape[3]
-    if not (1 <= b <= 8 and 1 <= r and r * r <= 32):
-        raise ValueError(f"the leaf-insert kernel takes 1 <= b <= 8 and "
-                         f"r*r <= 32 (one lane per bucket), got b={b}, r={r}")
     spill = torch.empty((L, n), dtype=torch.int32, device=fs.device)
     lib = _build.library("leaf_insert")
     with torch.cuda.device(fs.device):

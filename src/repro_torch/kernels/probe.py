@@ -119,9 +119,9 @@ def vertex_probe(slabs: NodeState, idx, mask, fv, rows, ts: int, te: int,
            fv=(fv, i32), rows=(rows, i32))
     if fv.shape != (q,):
         raise ValueError("fv must be (q,) and rows (q, r)")
-    if not (1 <= b <= 768 and 1 <= r <= 8):
+    if not (1 <= b <= 768 and 1 <= r <= 16384):
         raise ValueError(f"the vertex-probe kernel takes 1 <= b <= 768 and "
-                         f"1 <= r <= 8, got b={b}, r={r}")
+                         f"1 <= r <= 16384, got b={b}, r={r}")
     out = torch.empty((q,), dtype=torch.float32, device=fv.device)
     lib = _build.library("probe")
     ws = torch.empty((lib.higgs_vertex_probe_workspace(m, q, d, r),),

@@ -90,7 +90,12 @@ def check_leaf_insert(items, L, d, b, r, nodes=None):
                                        (6, 8, 3, 4, 333),
                                        # the other slot counts it takes
                                        (4, 8, 4, 2, 200),
-                                       (3, 8, 8, 1, 120)])
+                                       (3, 8, 8, 1, 120),
+                                       # b > 8 or r*r > 32: the kernel
+                                       # for any shape
+                                       (4, 16, 9, 2, 150),
+                                       (3, 16, 3, 6, 200),
+                                       (2, 16, 2, 8, 130)])
 def test_leaf_insert_kernel_matches_plain(cuda, L, d, b, r, n):
     rng = np.random.default_rng(L + d + n)
     items = leaf_items(rng, L, n, d, r, 14, cuda)
@@ -144,7 +149,14 @@ def probe_slabs(rng, cap, d, b, F, dev, float_w=False):
 
 @pytest.mark.parametrize("m,d,b,q,r", [(3, 16, 3, 64, 4),
                                        (2, 256, 3, 40, 4),
-                                       (5, 32, 2, 16, 2)])
+                                       (5, 32, 2, 16, 2),
+                                       # K4 line blocks wider than a probe
+                                       # CTA (n_lines*b > 128 slots), at
+                                       # one and at eight lines per block
+                                       (2, 16, 130, 64, 4),
+                                       (2, 1024, 20, 40, 4),
+                                       # more than 8 candidates per query
+                                       (2, 64, 3, 64, 12)])
 @pytest.mark.parametrize("match_time,ts,te", [(False, 0, 0),
                                               (True, 100, 700),
                                               (True, 0x80000000,

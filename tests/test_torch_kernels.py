@@ -130,6 +130,8 @@ def test_leaf_insert_plain_bit_exact(d, b, r, n):
     (3, 8, 2, 2, 64),
     (4, 16, 3, 4, 128),
     (5, 4, 2, 2, 96),    # tiny leaves: most items spill
+    (2, 16, 9, 2, 80),   # b > 8 and r*r > 32: the CUDA kernel for any
+    (2, 16, 3, 6, 80),   # shape serves these
 ])
 def test_leaf_insert_batched_plain_bit_exact(L, d, b, r, n):
     rng = np.random.default_rng(L * 100 + d)
@@ -282,6 +284,7 @@ def test_edge_probe_plain(m, d, b, q, r, match_time, float_w):
     (1, 8, 2, 4, 2),
     (3, 16, 3, 16, 4),
     (2, 32, 4, 8, 4),
+    (2, 64, 3, 8, 12),   # more than 8 candidates per query
 ])
 @pytest.mark.parametrize("direction", ["out", "in"])
 @pytest.mark.parametrize("match_time", [False, True])
