@@ -26,6 +26,12 @@ kernels/csrc`` (into ``build/kernels/``), then:
    own after a read of a buffer five times the L2's size), and for one
    call; and measures the dependent round trips that bound K1's
    sequential item chain (``tools/chain_bench.cu``, built here);
+   K3 also as the planner launches it, once over all the entries of an
+   edge batch: every level without the time filter in one launch, every
+   level with it in another, and the main path's own three edge batches
+   (timed as K3 calls, and as whole ``_edge_batch`` calls, overflow-block
+   scans included); and K4 once more at b = 1024 (a bucket wider than its
+   staging chunk), exact against its plain version;
 3. ingests a 1.1M-edge prefix twice, once through the kernels and once
    through the plain versions (``kernels=False``), and requires equal
    pools, overflow blocks and answers.
@@ -248,11 +254,18 @@ def main_path(torch, api, stream, queries, counted):
     """The measured run: counts 0 -> ingest -> queries -> counts read."""
     HiggsSketch, HiggsParams, EdgeQuery, VertexQuery = api
     sk = HiggsSketch(HiggsParams())                 # default device: CUDA
-    captured = {}
+    captured = {"edge_batches": []}
     insert = sk._pipeline._insert
+    probe_levels = sk.planner._edge_probe_levels
+
+    def capture_edge_batch(entries, *leaf, params):
+        captured["edge_batches"].append((entries, leaf))   # one per range
+        return probe_levels(entries, *leaf, params=params)
+
+    sk.planner._edge_probe_levels = capture_edge_batch
 
     def capture_first_drain(nodes, *items, r):
-        if not captured:                          # inputs of one real drain
+        if "items" not in captured:               # inputs of one real drain
             captured["items"] = [x.clone() for x in items]
             captured["shape"] = tuple(nodes.fp_s.shape)
             captured["r"] = r
@@ -278,6 +291,7 @@ def main_path(torch, api, stream, queries, counted):
             results[(kind, name)] = (np.asarray(res.values[0]), res.stats)
     launches = {fn.__name__: fn.launches for fn in counted}
     peak = torch.cuda.max_memory_allocated()
+    sk.planner._edge_probe_levels = probe_levels
     return sk, captured, results, launches, ingest_s, q_s, peak
 
 
@@ -477,6 +491,18 @@ def timed_probe(torch, new, plain, tag, bound, tot):
     return row
 
 
+def level_ids(pool) -> np.ndarray:
+    """Up to 6 global node ids spread over a level pool (a plan probes
+    at most 2 * (theta - 1) = 6 nodes per level at the default theta)."""
+    return np.unique(np.linspace(0, pool.n - 1, min(pool.n, 6))
+                     .astype(np.int64)) + pool.base
+
+
+def time_bounds(sk):
+    t = sk.leaf_ends
+    return int(t[len(t) // 3]), int(t[2 * len(t) // 3])
+
+
 def probe_phase(torch, tcm, pr, sk, queries):
     p = sk.params
     e_src, e_dst, v_out, v_in = queries
@@ -489,15 +515,13 @@ def probe_phase(torch, tcm, pr, sk, queries):
             torch.from_numpy(base.astype(np.int64)).to(dev), level, p)
         return fp.to(torch.int32), rows.to(torch.int32)
 
-    t = sk.leaf_ends
-    ts_mid, te_mid = int(t[len(t) // 3]), int(t[2 * len(t) // 3])
+    ts_mid, te_mid = time_bounds(sk)
     tot = {k: new_sums() for k in ("edge_probe", "vertex_probe",
                                    "edge_probe_time", "vertex_probe_time")}
     levels = []
     for level in range(1, sk.n_levels + 1):
         pool = sk.pools[level - 1]
-        ids = np.unique(np.linspace(0, pool.n - 1, min(pool.n, 6))
-                        .astype(np.int64)) + pool.base
+        ids = level_ids(pool)
         idx, mask = pool.gather_ids(ids)
         slabs = pool.device_view()
         m, d, b, r = len(ids), p.d(level), p.b, p.r
@@ -550,6 +574,152 @@ def probe_phase(torch, tcm, pr, sk, queries):
     return tot, levels
 
 
+def edge_levels_bound_ms(torch, tcm, p, entries, leaf):
+    """Bytes of one K3 launch over ``entries``: the distinct candidate
+    buckets' slots of each entry (fp_s, fp_d, w, and t with the time
+    filter), the leaf-level queries once, the matrices' idx/mask and the
+    answers; as ms at the HBM rate.  Also the bytes of the 32-byte
+    sectors that the fp_s reads touch, summed over queries (each query's
+    buckets read once, no sharing between queries)."""
+    f1s, rows1, f1d, cols1 = leaf
+    q, r = rows1.shape
+    nbytes = q * (8 + 8 * r) + q * 4 * len(entries)
+    sector_bytes = 0
+    for e in entries:
+        d, b = e.slabs.fp_s.shape[1], e.slabs.fp_s.shape[3]
+        _, rows = tcm.level_coords(f1s, rows1, e.level, p)
+        _, cols = tcm.level_coords(f1d, cols1, e.level, p)
+        idx = torch.as_tensor(e.idx[e.mask], dtype=torch.int64,
+                              device=f1s.device)
+        bucket = ((idx[None, :, None, None] * d + rows[:, None, :, None])
+                  * d + cols[:, None, None, :])
+        nbytes += (int(torch.unique(bucket).numel()) * b
+                   * (16 if e.match_time else 12) + len(e.idx) * 5)
+        first = bucket * (4 * b)                  # byte offsets of fp_s
+        sector_bytes += 32 * int(((first + 4 * b - 1) // 32 - first // 32
+                                  + 1).sum())
+    return nbytes / HBM_BYTES_PER_S * 1e3, sector_bytes
+
+
+def edge_levels_phase(torch, tcm, pr, sk, queries, captured, stream):
+    """K3 as the planner launches it, one launch over many entries: (a)
+    the probe phase's entries of every level, without and with the time
+    filter, each list as one launch; (b) the main path's three edge
+    batches as captured (the plan's levels, then the filtered leaves),
+    timed as K3 calls and as whole ``_edge_batch`` calls.  Exact against
+    ``edge_probe_levels_plain``."""
+    from repro_torch.api.queries import QueryStats
+
+    p = sk.params
+    dev = sk.device
+    e_src, e_dst = queries[0], queries[1]
+    f1s, bs = sk._query_coords(e_src, "s")
+    f1d, bd = sk._query_coords(e_dst, "d")
+
+    def to_dev(a):
+        return torch.from_numpy(a.astype(np.int64)).to(dev)
+
+    i32 = torch.int32
+    leaf = (to_dev(f1s).to(i32), tcm.chain_from_base(to_dev(bs), p.r,
+                                                     p.d1).to(i32),
+            to_dev(f1d).to(i32), tcm.chain_from_base(to_dev(bd), p.r,
+                                                     p.d1).to(i32))
+    ts_mid, te_mid = time_bounds(sk)
+    rows = {}
+
+    def measure(tag, entries, leaf):
+        got = pr.edge_probe_levels(entries, *leaf, params=p)
+        want = pr.edge_probe_levels_plain(entries, *leaf, params=p)
+        require(torch.equal(got, want), f"edge_probe_levels {tag}: differs "
+                f"from plain")
+        bound, sector_bytes = edge_levels_bound_ms(torch, tcm, p, entries,
+                                                   leaf)
+        row = timed_probe(
+            torch, lambda: pr.edge_probe_levels(entries, *leaf, params=p),
+            lambda: pr.edge_probe_levels_plain(entries, *leaf, params=p),
+            f"edge_probe_levels {tag}: {len(entries)} entries in one launch, "
+            f"levels {[e.level for e in entries]}, fp_s sectors "
+            f"{sector_bytes} bytes", bound, None)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        row.update(entries=len(entries), max_abs_err=err,
+                   nonzero=int((got > 0).sum()), sector_bytes=sector_bytes)
+        rows[tag] = row
+
+    for match_time in (False, True):
+        entries = []
+        for level in range(1, sk.n_levels + 1):
+            pool = sk.pools[level - 1]
+            ids = level_ids(pool)
+            lo = ts_mid if level == 1 else 0      # as in the probe phase
+            ts, te = (lo, te_mid) if match_time else (0, 0xFFFFFFFF)
+            entries.append(pr.EdgeEntry(
+                pool.device_view(), pool.slots_of(ids),
+                np.ones(len(ids), bool), level, ts, te, match_time))
+        measure("all levels" + (", time filter" if match_time else ""),
+                entries, leaf)
+    for name, (entries, batch_leaf) in zip(ranges_of(stream[3]),
+                                           captured["edge_batches"]):
+        measure(f"main path {name}", entries, batch_leaf)
+        ts, te = ranges_of(stream[3])[name]
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sk.planner._edge_batch(e_src, e_dst, ts, te, QueryStats())
+            secs.append(time.perf_counter() - t0)
+        rows[f"main path {name}"]["edge_batch_ms"] = float(
+            np.median(secs) * 1e3)
+        print(f"phase planner edge batch {name}: {np.median(secs) * 1e3:.2f} "
+              f"ms per _edge_batch call ({Q} queries, overflow-block scans "
+              f"included)", flush=True)
+    return rows
+
+
+def wide_bucket_phase(torch, tcm, pr):
+    """K4 at b = 1024, wider than its 768-slot staging chunk: random
+    slabs (m = 2, d = 16), Q queries on fingerprints of their first
+    candidate line, both directions and time modes, exact against the
+    plain version."""
+    rng = np.random.default_rng(31)
+    m, d, b, r = 2, 16, 1024, 4
+    shape = (m, d, d, b)
+    occ = rng.random(shape) < 0.5
+    fields = [np.where(occ, rng.integers(0, 1 << 12, shape), -1),
+              np.where(occ, rng.integers(0, 1 << 12, shape), -1),
+              np.where(occ, rng.integers(1, 100, shape), 0),
+              rng.integers(0, 1000, shape), np.zeros(shape)]
+    slabs = tcm.NodeState(*(torch.from_numpy(a.astype(
+        np.float32 if i == 2 else np.int32)).to(DEVICE)
+        for i, a in enumerate(fields)))
+    idx = torch.arange(m, dtype=torch.int32, device=DEVICE)
+    mask = torch.ones(m, dtype=torch.bool, device=DEVICE)
+    base = torch.from_numpy(rng.integers(0, d, Q)).to(DEVICE)
+    vrows = tcm.chain_from_base(base, r, d).to(torch.int32)
+    out = {}
+    for direction, f in (("out", 0), ("in", 1)):
+        line = vrows[:, 0].long().cpu().numpy()
+        x = rng.integers(0, d, Q)
+        sl = rng.integers(0, b, Q)
+        mi = rng.integers(0, m, Q)
+        pos = (mi, line, x, sl) if direction == "out" else (mi, x, line, sl)
+        fv = torch.from_numpy(fields[f][pos].astype(np.int32)).to(DEVICE)
+        for match_time, (ts, te) in ((False, (0, 0xFFFFFFFF)),
+                                     (True, (100, 700))):
+            kw = dict(direction=direction, match_time=match_time)
+            args = (slabs, idx, mask, fv, vrows, ts, te)
+            got = pr.vertex_probe(*args, **kw)
+            want = pr.vertex_probe_plain(*args, **kw)
+            require(torch.equal(got, want), f"vertex_probe b={b} "
+                    f"{direction} match_time={match_time}: differs")
+            ms, covered = b2b_ms(torch, lambda: pr.vertex_probe(*args, **kw))
+            out[f"{direction}{'_time' if match_time else ''}"] = dict(
+                ms=ms, covered=covered, nonzero=int((got > 0).sum()))
+            print(f"phase vertex_probe b={b} d={d} m={m} q={Q} {direction} "
+                  f"match_time={match_time}: exact vs plain, {ms:.4f} ms "
+                  f"back to back (covered={covered}), "
+                  f"{int((got > 0).sum())} nonzero", flush=True)
+    return out
+
+
 def shared_lines_phase(torch, tcm, pr, sk, stream):
     """K4 with heavily shared lines: all Q queries fall on the stream's
     first HOT_VERTICES distinct sources ("out") or destinations ("in"),
@@ -560,9 +730,7 @@ def shared_lines_phase(torch, tcm, pr, sk, stream):
     tot, levels = new_sums(), []
     for level in range(1, sk.n_levels + 1):
         pool = sk.pools[level - 1]
-        ids = np.unique(np.linspace(0, pool.n - 1, min(pool.n, 6))
-                        .astype(np.int64)) + pool.base
-        idx, mask = pool.gather_ids(ids)
+        idx, mask = pool.gather_ids(level_ids(pool))
         slabs = pool.device_view()
         d = p.d(level)
         for direction, col, side in (("out", 0, "s"), ("in", 1, "d")):
@@ -763,6 +931,9 @@ def run(torch) -> dict:
     k12 = k1_k2_phase(torch, tcm, li, captured, chain)
     k34, probe_levels = probe_phase(torch, tcm, pr, sk, queries)
     shared, shared_levels = shared_lines_phase(torch, tcm, pr, sk, stream)
+    edge_levels = edge_levels_phase(torch, tcm, pr, sk, queries, captured,
+                                    stream)
+    wide = wide_bucket_phase(torch, tcm, pr)
     for name, tot in (*k34.items(), ("vertex_probe_shared", shared)):
         print(f"sum over levels {name}: kernel {tot['ms']:.4f} ms back to "
               f"back, {tot['cold_ms']:.4f} ms cold, one call "
@@ -780,7 +951,7 @@ def run(torch) -> dict:
         ("leaf_insert", "leaf_insert.cu",
          "src/repro/kernels/leaf_insert.py:88", k12["leaf_insert"]),
         ("edge_probe", "probe.cu", "src/repro/kernels/probe.py:107",
-         k34["edge_probe"]),
+         edge_levels["all levels"]),
         ("vertex_probe", "probe.cu", "src/repro/kernels/probe.py:139",
          k34["vertex_probe"]),
     ]
@@ -794,7 +965,8 @@ def run(torch) -> dict:
                for name, f, rep, m in rows]
     report = dict(kernels=kernels, k1_k2=k12, chain=chain, probes=k34,
                   probe_levels=probe_levels, shared_lines=shared,
-                  shared_lines_levels=shared_levels, profile=prof,
+                  shared_lines_levels=shared_levels,
+                  edge_levels=edge_levels, wide_buckets=wide, profile=prof,
                   answers=are, query_stats=stats, ingest_s=ingest_s,
                   query_s=q_s, peak_bytes=peak,
                   total_s=time.perf_counter() - t0)

@@ -6,13 +6,15 @@
    (a *time-range class*); VertexQuery batches group by (range, direction).
 2. Plan once per range class: ``boundary_search`` runs once per distinct
    range, memoized (LRU) until the next insertion mutates the tree.
-3. Probe once per (level, range class): one K3/K4 launch covers every
-   query of the class, reading the level pool's resident slabs through
-   the plan's row index; then the host overflow blocks of the planned
-   nodes are scanned.
+3. Probe: an edge batch makes one K3 launch over all its (level, range
+   class) entries, a vertex batch one K4 call per (level, range class);
+   each reads the level pools' resident slabs through the plan's row
+   index.  Then the host overflow blocks of the planned nodes are
+   scanned, and the answers add up level by level in the reference's
+   order.
 
-``QueryStats.device_dispatches`` counts the probe launches, as in the
-reference.
+``QueryStats.device_dispatches`` counts the (level, range class) probes,
+as in the reference, however many launches carry them.
 """
 from __future__ import annotations
 
@@ -70,7 +72,8 @@ class QueryPlanner:
         self.lifetime = QueryStats()       # accumulated across executions
         self._plan_cache: dict[tuple[int, int], tuple[dict, list]] = {}
         self._cache_version = -1
-        self._edge_probe = _pr.edge_probe if kernels else _pr.edge_probe_plain
+        self._edge_probe_levels = (_pr.edge_probe_levels if kernels
+                                   else _pr.edge_probe_levels_plain)
         self._vertex_probe = (_pr.vertex_probe if kernels
                               else _pr.vertex_probe_plain)
 
@@ -153,24 +156,43 @@ class QueryPlanner:
                 for a in arrays]
 
     def _edge_batch(self, src, dst, ts, te, stats: QueryStats) -> np.ndarray:
+        """One K3 launch over the plan's (level, class) entries, one copy
+        of the partials back; then, in the reference's order, each
+        entry's partial and its overflow-block scan add into the
+        answers."""
         sk = self.sketch
         out = np.zeros((len(src),), np.float64)
         if len(src) == 0:
             return out
+        p = sk.params
+        r = p.r if p.use_mmb else 1
         f1s, bs = sk._query_coords(src, "s")
         f1d, bd = sk._query_coords(dst, "d")
-        coords = self._to_device(f1s, bs, f1d, bd)
+        f1s_t, bs_t, f1d_t, bd_t = self._to_device(f1s, bs, f1d, bd)
+        i32 = torch.int32
+        leaf = (f1s_t.to(i32),
+                cmatrix.chain_from_base(bs_t, r, p.d1).to(i32),
+                f1d_t.to(i32),
+                cmatrix.chain_from_base(bd_t, r, p.d1).to(i32))
         plan, filtered = self.plan(ts, te, stats)
-        for level, ids in sorted(plan.items()):
-            out += self._probe_level_edge(level, ids, coords, ts, te, False,
-                                          stats)
-            out += self._ob_edge(level, ids, f1s, bs, f1d, bd, ts, te,
-                                 False, stats)
+        steps = [(level, ids, False) for level, ids in sorted(plan.items())]
         if filtered:
-            out += self._probe_level_edge(1, filtered, coords, ts, te, True,
-                                          stats)
-            out += self._ob_edge(1, filtered, f1s, bs, f1d, bd, ts, te,
-                                 True, stats)
+            steps.append((1, filtered, True))
+        entries, row_of = [], []
+        for level, ids, filter_time in steps:
+            entry = self._edge_entry(level, ids, ts, te, filter_time,
+                                     len(src), stats)
+            row_of.append(len(entries) if entry is not None else None)
+            if entry is not None:
+                entries.append(entry)
+        if entries:
+            partial = self._edge_probe_levels(entries, *leaf, params=p)
+            partial = partial.cpu().numpy().astype(np.float64)
+        for (level, ids, filter_time), row in zip(steps, row_of):
+            if row is not None:
+                out += partial[row]
+            out += self._ob_edge(level, ids, f1s, bs, f1d, bd, ts, te,
+                                 filter_time, stats)
         return out
 
     def _vertex_batch(self, v, ts, te, direction,
@@ -195,29 +217,24 @@ class QueryPlanner:
                                    True, stats)
         return out
 
-    # -- device probes: one K3/K4 launch per (level, class) --------------
+    # -- device probes: K3 entries, one K4 call per (level, class) -------
 
-    def _probe_level_edge(self, level, ids, coords, ts, te, filter_time,
-                          stats: QueryStats):
+    def _edge_entry(self, level, ids, ts, te, filter_time, q,
+                    stats: QueryStats):
+        """The K3 entry of one (level, class), or None if nothing is
+        there to probe."""
         sk = self.sketch
         if len(ids) == 0 or level > len(sk.pools) or \
                 sk.pools[level - 1].n == 0:
-            return 0.0
+            return None
         p = sk.params
         r = p.r if p.use_mmb else 1
-        f1s, bs, f1d, bd = coords
-        q = len(f1s)
         stats.device_dispatches += 1
         stats.buckets_probed += len(ids) * r * r * q
         pool = sk.pools[level - 1]
-        idx, mask = pool.gather_ids(ids)
-        fs, rows = cmatrix.coords_at_level(f1s, bs, level, p)
-        fd, cols = cmatrix.coords_at_level(f1d, bd, level, p)
-        i32 = torch.int32
-        res = self._edge_probe(pool.device_view(), idx, mask, fs.to(i32),
-                               fd.to(i32), rows.to(i32), cols.to(i32),
-                               int(ts), int(te), match_time=filter_time)
-        return res.cpu().numpy().astype(np.float64)
+        return _pr.EdgeEntry(pool.device_view(), pool.slots_of(ids),
+                             np.ones((len(ids),), bool), level, int(ts),
+                             int(te), filter_time)
 
     def _probe_level_vertex(self, level, ids, coords, ts, te, direction,
                             filter_time, stats: QueryStats):

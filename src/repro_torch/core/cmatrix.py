@@ -113,10 +113,19 @@ def coords_at_level(f1: torch.Tensor, base: torch.Tensor, level: int,
     """(fp_l, rows_l (..., r)) probe/placement coordinates at a tree
     level, derived by shifting the leaf-level chain."""
     r = params.r if params.use_mmb else 1
-    R, F1, d1 = params.R, params.F1, params.d1
-    s = R * (level - 1)
-    f1 = as_u32(f1)
-    rows1 = chain_from_base(as_u32(base), r, d1)
+    return level_coords(f1, chain_from_base(as_u32(base), r, params.d1),
+                        level, params)
+
+
+def level_coords(f1: torch.Tensor, rows1: torch.Tensor, level: int,
+                 params: HiggsParams):
+    """(fp_l, rows_l) at a tree level from the leaf fingerprint ``f1``
+    and its leaf-level chain ``rows1`` (..., r): the top ``s`` fingerprint
+    bits shift into the address (the edge-probe kernel derives them the
+    same way on uint32)."""
+    s = params.R * (level - 1)
+    F1 = params.F1
+    f1, rows1 = as_u32(f1), as_u32(rows1)
     fp_l = f1 & ((1 << (F1 - s)) - 1)
     if s == 0:
         return fp_l, rows1

@@ -27,6 +27,7 @@ from repro_torch.core.params import HiggsParams
 from repro_torch.core.pool import _LevelPool
 from repro_torch.core.segments import SegmentStore
 from repro_torch.kernels.pipeline import DrainPipeline
+from repro_torch.kernels.probe import VERTEX_MAX_R
 
 
 def resolve_device(device) -> torch.device:
@@ -172,6 +173,12 @@ class HiggsSketch:
                 "device pools; other engines are ROADMAP.md module item 10")
         self.params = params
         self.device = resolve_device(device)
+        r = params.r if params.use_mmb else 1
+        if kernels and self.device.type == "cuda" and r > VERTEX_MAX_R:
+            raise ValueError(
+                f"r={r}: the vertex-probe kernel takes at most "
+                f"{VERTEX_MAX_R} candidates per query (all of a query's "
+                f"(query, candidate) pairs go through one launch)")
         self.pools: list[_LevelPool] = [
             _LevelPool(params.d1, params.b, self.device)]   # level 1
         self._leaves = _LeafIndex()

@@ -141,12 +141,16 @@ class _LevelPool:
 
     # -- reads -----------------------------------------------------------
 
+    def slots_of(self, ids) -> np.ndarray:
+        """Physical slot indices ``(m,)`` int32 of **global** ids, on the
+        host."""
+        return (np.asarray(ids, np.int64) - self.base).astype(np.int32)
+
     def gather_ids(self, ids) -> tuple[torch.Tensor, torch.Tensor]:
         """Physical slot indices ``(m,)`` int32 and an all-true mask for
         a probe over **global** ids, on the pool's device (the row take
         itself happens inside the probe kernel)."""
-        idx = (np.asarray(ids, np.int64) - self.base).astype(np.int32)
-        idx_t = torch.from_numpy(idx).to(self.device)
+        idx_t = torch.from_numpy(self.slots_of(ids)).to(self.device)
         return idx_t, torch.ones(idx_t.shape, dtype=torch.bool,
                                  device=self.device)
 

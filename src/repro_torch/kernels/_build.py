@@ -36,7 +36,7 @@ _SIGNATURES = {
         "higgs_leaf_insert": [_P] * 13 + [_I] * 5 + [_P],
     },
     "probe": {
-        "higgs_edge_probe": [_P] * 10 + [_U, _U, _I, _P] + [_I] * 5 + [_P],
+        "higgs_edge_probe_levels": [_P, _I] + [_P] * 7 + [_I] * 4 + [_P],
         "higgs_vertex_probe": [_P] * 7 + [_U, _U, _I, _I, _P, _P]
         + [_I] * 5 + [_P],
         "higgs_vertex_probe_workspace": ([_I] * 4, ctypes.c_size_t),

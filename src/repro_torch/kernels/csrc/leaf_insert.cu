@@ -320,13 +320,20 @@ __global__ void __launch_bounds__(32) leaf_insert_any_kernel(
   }
 }
 
-// cudaFuncSetAttribute once per process and size
+constexpr int kMaxDevices = 64;
+
+// cudaFuncSetAttribute once per device and size (the attribute belongs to
+// the current device's context); devices past kMaxDevices set it each time
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem, size_t& configured) {
-  if (smem <= configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+cudaError_t allow_smem(K kernel, size_t smem,
+                       size_t (&configured)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && smem <= configured[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) configured = smem;
+  if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = smem;
   return err;
 }
 
@@ -336,7 +343,7 @@ int launch(size_t smem, int L, int n, int d, int r, cudaStream_t stream,
            const void* fs, const void* fd, const void* w, const void* t,
            const void* valid, const void* rows, const void* cols,
            void* spill) {
-  static size_t configured = 0;
+  static size_t configured[kMaxDevices] = {};
   const cudaError_t err = allow_smem(leaf_insert_kernel<B>, smem, configured);
   if (err != cudaSuccess) return (int)err;
   leaf_insert_kernel<B><<<L, 32, smem, stream>>>(
@@ -363,7 +370,7 @@ extern "C" int higgs_leaf_insert(
   if (b > kMaxB || r * r > 32) {
     const size_t smem =
         (size_t)d * d * b * 5 * 4 + (size_t)kTile * (5 + 2 * r) * 4;
-    static size_t configured = 0;
+    static size_t configured[kMaxDevices] = {};
     const cudaError_t err =
         allow_smem(leaf_insert_any_kernel, smem, configured);
     if (err != cudaSuccess) return (int)err;

@@ -1,8 +1,8 @@
 // K3/K4: edge and vertex probes on Hopper (sm_90a).
 //
 // Replace the Pallas TPU kernels of the reference package:
-//   src/repro/kernels/probe.py::edge_probe_pallas   (K3)
-//   src/repro/kernels/probe.py::vertex_probe_pallas (K4)
+//   src/repro/kernels/probe.py:107 edge_probe_pallas   (K3)
+//   src/repro/kernels/probe.py:139 vertex_probe_pallas (K4)
 // and, on the reference's main path, the planner's fused jnp launches
 // `_edge_probe_fused` / `_vertex_probe_fused` (src/repro/api/planner.py).
 //
@@ -17,11 +17,37 @@
 // vector unit.  On Hopper a gather is cheap, and the two kernels gather
 // differently:
 //
-// K3 (edge): one warp per query.  The m*r*r*b candidate slots are spread
-//   over the lanes; each lane sums its matches and a fixed-order shuffle
-//   reduction gives the total, so results are deterministic.  Bound: the
-//   candidate slots' bytes (4 fields x 4 bytes; scattered 4-byte reads, so
-//   each touches a 32-byte sector).
+// K3 (edge): one launch per edge batch, over all its probe entries (an
+//   entry is one (level, range class) of the planner's plan: a level's
+//   matrices, or the time-filtered leaves).  The port's first K3 (one
+//   launch per entry, one warp per query, each lane walking
+//   ceil(m*r*r*b/32) slots, and per slot three divisions, four metadata
+//   loads and then the dependent fp_s -> fp_d -> t -> w loads) was
+//   latency-bound and launch-bound, not byte-bound: at the smoke run's
+//   shapes it took 11-13 us per level whatever the level's bytes (0.1-2
+//   us at HBM rate), plus the wrapper's host work for each level.  Here:
+//   - the entries' descriptors (slab pointers, d, m, shift s, [ts, te],
+//     time flag) travel by value as a kernel parameter, their idx/mask
+//     concatenated in one buffer, and blockIdx.y picks the entry;
+//   - one warp per (entry, query) reads the query's leaf-level
+//     fingerprint and chain, and the slab rows of up to 32 matrices, in
+//     one round trip, shifts the coordinates to the entry's level in
+//     registers (cmatrix.level_coords), and hands rows and candidates to
+//     the lanes by shuffle: the host computes no per-level coordinates,
+//     and no barrier or shared memory is needed;
+//   - lane l walks slots l, l + 32, ... in the mixed radix (matrix, i, j,
+//     slot), stepped by carries (no division in the loop; r and b are
+//     template constants for r in {1, 2, 4} and b in {1..4}), so
+//     neighbouring lanes read neighbouring slots of a bucket; it issues
+//     the fp_s loads of kSlots slots at once, then fp_d only for the
+//     slots still matching, then t and w: a round trip or three per
+//     kSlots slots instead of 3-4 per slot.  Giving each lane a whole
+//     bucket instead (b loads to one sector) measured slower at the top
+//     levels, and 12 slots in flight slower than 6 (fewer warps fit);
+//   - each lane adds its matches in a fixed order and a fixed shuffle tree
+//     sums the lanes: deterministic, no atomics.
+//   Over all levels the launch is bound by the 32-byte sectors its
+//   scattered 12-byte buckets touch in the L2, not by their useful bytes.
 //
 // K4 (vertex): many queries share candidate lines (query vertices are
 //   Zipf-drawn and a level has at most m*d distinct lines), so a kernel per
@@ -72,36 +98,200 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void edge_probe_kernel(
-    const int32_t* __restrict__ fp_s, const int32_t* __restrict__ fp_d,
-    const float* __restrict__ w, const int32_t* __restrict__ t,
-    const int32_t* __restrict__ idx, const uint8_t* __restrict__ mask,
-    const int32_t* __restrict__ fs, const int32_t* __restrict__ fd,
-    const int32_t* __restrict__ rows, const int32_t* __restrict__ cols,
-    uint32_t ts, uint32_t te, int match_time, float* __restrict__ out,
-    int m, int q, int d, int b, int r) {
-  const int qi = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (qi >= q) return;                 // whole warps exit together
-  const int32_t qfs = fs[qi], qfd = fd[qi];
-  const int per = r * r * b;
-  float acc = 0.f;
-  for (int e = lane; e < m * per; e += 32) {
-    const int mi = e / per;
-    if (!mask[mi]) continue;
-    const int rem = e - mi * per;
-    const int k = rem / b, s = rem - k * b;
-    const int row = rows[qi * r + k / r], col = cols[qi * r + k % r];
-    const size_t c = (((size_t)idx[mi] * d + row) * d + col) * b + s;
-    if (fp_s[c] == qfs && fp_d[c] == qfd &&
-        (!match_time || in_range(t[c], ts, te)))
-      acc += w[c];
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) out[qi] = acc;
+constexpr unsigned kFull = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// K3
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxEntries = 16;   // probe entries per launch
+constexpr int kEdgeWarps = 8;     // queries per CTA, one warp each
+constexpr int kSlots = 6;         // slots in flight per lane
+
+struct EdgeEntry {                // one probe entry; kernels/probe.py mirrors
+  const int32_t* fp_s;            // the layout (_EdgeEntry)
+  const int32_t* fp_d;
+  const float* w;
+  const int32_t* t;
+  int d, m, off, s;   // side, matrices, offset into idx/mask, level shift
+  uint32_t ts, te;
+  int match_time, pad;
+};
+static_assert(sizeof(EdgeEntry) == 64, "EdgeEntry layout");
+
+struct EdgeEntries {
+  EdgeEntry e[kMaxEntries];
+};
+
+struct EdgeQueries {              // leaf-level query coordinates
+  const int32_t* f1s;             // (q,) fingerprints
+  const int32_t* rows1;           // (q, r) chains
+  const int32_t* f1d;
+  const int32_t* cols1;
+  int q, r, b, F1;
+};
+
+// the level's fingerprint and line from the leaf level's, on uint32, as
+// cmatrix.level_coords: 1 <= F1 - s <= 32, and F1 - s <= 31 when s > 0
+// (a shift by 32 is undefined)
+__device__ __forceinline__ uint32_t level_fp(uint32_t f1, int F1, int s) {
+  return F1 - s >= 32 ? f1 : f1 & ((1u << (F1 - s)) - 1u);
 }
 
-constexpr unsigned kFull = 0xffffffffu;
+__device__ __forceinline__ uint32_t level_line(uint32_t line1, uint32_t f1,
+                                               int F1, int s) {
+  return s == 0 ? line1 : (line1 << s) | (f1 >> (F1 - s));
+}
+
+struct QueryAtLevel {
+  uint32_t f1s, f1d;              // leaf level
+  uint32_t fs, fd;                // the entry's level
+  uint32_t row, col;              // candidate `lane` (lanes < r)
+};
+
+__device__ __forceinline__ QueryAtLevel query_at_level(const EdgeQueries& qs,
+                                                       int qi, int lane,
+                                                       int s) {
+  QueryAtLevel a{};
+  a.f1s = (uint32_t)qs.f1s[qi];
+  a.f1d = (uint32_t)qs.f1d[qi];
+  a.fs = level_fp(a.f1s, qs.F1, s);
+  a.fd = level_fp(a.f1d, qs.F1, s);
+  if (lane < qs.r) {
+    const size_t c = (size_t)qi * qs.r + lane;
+    a.row = level_line((uint32_t)qs.rows1[c], a.f1s, qs.F1, s);
+    a.col = level_line((uint32_t)qs.cols1[c], a.f1d, qs.F1, s);
+  }
+  return a;
+}
+
+// slab rows of the entry's matrices m0 + lane (lanes < n; -1 where
+// masked), off = the entry's offset + m0
+__device__ __forceinline__ int32_t lane_rows(const int32_t* __restrict__ idx,
+                                             const uint8_t* __restrict__ mask,
+                                             int off, int n, int lane) {
+  int32_t v = -1;
+  if (lane < n) {
+    const int32_t x = idx[off + lane];
+    v = mask[off + lane] ? x : -1;
+  }
+  return v;
+}
+
+// N candidate slots at addr[k] (ok[k]: a slot of an unmasked matrix): all
+// fp_s loads issue before any compare, fp_d loads only for the slots still
+// matching, then t and w; the matches' weights add to acc in slot order
+template <int N>
+__device__ __forceinline__ float probe_slots(const EdgeEntry& E,
+                                             const size_t (&addr)[N],
+                                             const bool (&ok)[N],
+                                             uint32_t qfs, uint32_t qfd,
+                                             float acc) {
+  int32_t v[N];
+  bool hit[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = ok[k] ? __ldg(E.fp_s + addr[k]) : 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) hit[k] = ok[k] && (uint32_t)v[k] == qfs;
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = hit[k] ? __ldg(E.fp_d + addr[k]) : 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) hit[k] = hit[k] && (uint32_t)v[k] == qfd;
+  float wv[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    wv[k] = hit[k] ? __ldg(E.w + addr[k]) : 0.f;
+    v[k] = hit[k] && E.match_time ? __ldg(E.t + addr[k]) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    if (hit[k] && (!E.match_time || in_range(v[k], E.ts, E.te)))
+      acc += wv[k];
+  return acc;
+}
+
+// one warp per (entry blockIdx.y, query): the lanes walk the entry's
+// m*r*r*b candidate slots, lane l taking slots l, l + 32, ..., in the
+// mixed radix (matrix, i, j, slot) stepped by carries, so neighbouring
+// lanes read neighbouring slots of a bucket.  R, B > 0 fix r and b at
+// compile time (the common shapes); R = B = 0 takes the launch's.
+template <int R, int B>
+__global__ void __launch_bounds__(kEdgeWarps * 32) edge_probe_kernel(
+    const __grid_constant__ EdgeEntries ents, const EdgeQueries qs,
+    const int32_t* __restrict__ idx, const uint8_t* __restrict__ mask,
+    float* __restrict__ out) {
+  const EdgeEntry E = ents.e[blockIdx.y];
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
+  if (qi >= qs.q) return;                  // whole warps; no barrier follows
+  const int r = R ? R : qs.r, b = B ? B : qs.b;
+  // one round trip: the query's coordinates and the first 32 matrices'
+  // slab rows, handed out by shuffle
+  int32_t rows_m = lane_rows(idx, mask, E.off, E.m, lane);
+  const QueryAtLevel a = query_at_level(qs, qi, lane, E.s);
+  // 32 slots in the radix (matrix, i, j, slot)
+  const int dsl = 32 % b, dj = 32 / b % r, di = 32 / b / r % r,
+            dm = 32 / b / r / r;
+  const size_t mat = (size_t)E.d * E.d * b;
+  const size_t qrow = (size_t)qi * r;
+  float acc = 0.f;
+  for (int m0 = 0; m0 < E.m; m0 += 32) {
+    if (m0) rows_m = lane_rows(idx, mask, E.off + m0, E.m - m0, lane);
+    const long long S = (long long)min(32, E.m - m0) * r * r * b;
+    int sl = lane % b, j = lane / b % r, i = lane / b / r % r,
+        mi = lane / b / r / r;
+    for (long long e0 = lane; e0 < S + lane; e0 += 32 * kSlots) {
+      size_t addr[kSlots];
+      bool ok[kSlots];
+#pragma unroll
+      for (int g = 0; g < kSlots; ++g) {
+        uint32_t row = __shfl_sync(kFull, a.row, i & 31);
+        uint32_t col = __shfl_sync(kFull, a.col, j & 31);
+        if (R == 0 && r > 32) {                // candidates not in lanes
+          row = level_line((uint32_t)qs.rows1[qrow + i], a.f1s, qs.F1, E.s);
+          col = level_line((uint32_t)qs.cols1[qrow + j], a.f1d, qs.F1, E.s);
+        }
+        const int32_t slab_row = __shfl_sync(kFull, rows_m, mi & 31);
+        ok[g] = e0 + 32 * g < S && slab_row >= 0;
+        addr[g] = (size_t)slab_row * mat + ((size_t)row * E.d + col) * b + sl;
+        sl += dsl;
+        j += dj;
+        i += di;
+        mi += dm;
+        if (sl >= b) { sl -= b; ++j; }
+        if (j >= r) { j -= r; ++i; }
+        if (i >= r) { i -= r; ++mi; }
+      }
+      acc = probe_slots(E, addr, ok, a.fs, a.fd, acc);
+    }
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) out[(size_t)blockIdx.y * qs.q + qi] = acc;
+}
+
+template <int R>
+bool launch_edge_fast(int b, dim3 grid, cudaStream_t s,
+                      const EdgeEntries& ents, const EdgeQueries& qs,
+                      const int32_t* idx, const uint8_t* mask, float* out) {
+  switch (b) {
+#define HIGGS_EDGE_CASE(B)                                         \
+  case B:                                                          \
+    edge_probe_kernel<R, B><<<grid, kEdgeWarps * 32, 0, s>>>(      \
+        ents, qs, idx, mask, out);                                 \
+    return true;
+    HIGGS_EDGE_CASE(1)
+    HIGGS_EDGE_CASE(2)
+    HIGGS_EDGE_CASE(3)
+    HIGGS_EDGE_CASE(4)
+#undef HIGGS_EDGE_CASE
+  }
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// K4
+// ---------------------------------------------------------------------------
+
 constexpr int kMaxLines = 8;     // adjacent lines per line block (at most)
 constexpr int kPairs = 128;      // pairs per work unit = probe CTA threads
 constexpr int kStage = 768;      // slots per line per staged chunk
@@ -110,10 +300,21 @@ constexpr int kMaxSegs = 16;     // prep CTAs per launch
 constexpr int kMaxPairs = kSeg * kMaxSegs;   // pairs per launch
 constexpr int kHash = 2 * kSeg;
 
+// a staged chunk of a line: stage_cross(b) cross positions of
+// stage_slots(b) slots each (b > kStage: a cross position's slots in
+// chunks of kStage)
+__host__ __device__ __forceinline__ int stage_cross(int b) {
+  return b < kStage ? kStage / b : 1;
+}
+
+__host__ __device__ __forceinline__ int stage_slots(int b) {
+  return b < kStage ? b : kStage;
+}
+
 __host__ __device__ __forceinline__ int stage_pitch(int b) {
   // words per staged line: a multiple of 4 (16-byte loads) that is 4 mod
   // 32, so the lines of a block start on distinct bank quads
-  return ((kStage / b) * b + 31) / 32 * 32 + 4;
+  return (stage_cross(b) * stage_slots(b) + 31) / 32 * 32 + 4;
 }
 
 // lines per block: 1 up to d = 128, then about 128 blocks, at most 8 lines
@@ -217,8 +418,9 @@ __global__ void __launch_bounds__(kSeg) vertex_prep_kernel(
 //    representatives are the concatenation of the segments' runs; the CTA
 //    takes units of kPairs of them (u = blockIdx.y, + gridDim.y, ...),
 //    stages the block's fp, w (and t) (cp.async, chunks of the cross
-//    dimension), and each thread scans its pair's line: four running sums
-//    over slots 4i .. 4i+3, added in a fixed order.  partial[mi][p] = the
+//    dimension, and of a cross position's slots when b > kStage), and
+//    each thread scans its pair's line: four running sums over staged
+//    slots 4i .. 4i+3, added in a fixed order.  partial[mi][p] = the
 //    representative pair's sum.
 template <bool TIME>
 __global__ void __launch_bounds__(kPairs) vertex_probe_kernel(
@@ -253,7 +455,7 @@ __global__ void __launch_bounds__(kPairs) vertex_probe_kernel(
   const int pitch = stage_pitch(b);
   int32_t* s_w = s_fp + lb * pitch;           // then w, then t
   int32_t* s_t = s_w + lb * pitch;
-  const int X = kStage / b;                   // cross positions per chunk
+  const int X = stage_cross(b), SB = stage_slots(b);
   const int l0 = blk * lb, nl = min(lb, d - l0);
   const size_t mbase = (size_t)idx[mi] * d * d * b;
   // "in": row x of a chunk holds seg = nl*b contiguous slots; thread tid
@@ -273,10 +475,12 @@ __global__ void __launch_bounds__(kPairs) vertex_probe_kernel(
     }
     const int li = (line - l0) * pitch;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    for (int x0 = 0; x0 < d; x0 += X) {
-      const int nx = min(X, d - x0), run = nx * b;
-      // stage fp, w (and t) of the block's lines: element e of a line is
-      // cross x0 + e / b, slot e % b
+    for (int x0 = 0; x0 < d; x0 += X)
+    for (int s0 = 0; s0 < b; s0 += SB) {
+      // stage fp, w (and t) of the block's lines: cross positions x0 ..
+      // x0 + nx - 1, slots s0 .. s0 + ns - 1 (ns = b, or nx = 1); element
+      // e of a staged line is cross x0 + e / ns, slot s0 + e % ns
+      const int nx = min(X, d - x0), ns = min(SB, b - s0), run = nx * ns;
       auto stage = [&](int dst, size_t src) {
         cp_async4(s_fp + dst, fp + src);
         cp_async4(s_w + dst, reinterpret_cast<const int32_t*>(w) + src);
@@ -284,20 +488,21 @@ __global__ void __launch_bounds__(kPairs) vertex_probe_kernel(
       };
       if (!dir_in) {                          // line = row: contiguous runs
         for (int l = 0; l < nl; ++l) {
-          const size_t g = mbase + ((size_t)(l0 + l) * d + x0) * b;
+          const size_t g = mbase + ((size_t)(l0 + l) * d + x0) * b + s0;
           for (int e = tid; e < run; e += kPairs) stage(l * pitch + e, g + e);
         }
-      } else if (rows_per_pass > 0) {         // line = column
+      } else if (rows_per_pass > 0) {         // line = column; ns = b
         if (tid < rows_per_pass * seg) {
           for (int x = tid / seg; x < nx; x += rows_per_pass)
             stage(l_in * pitch + x * b + s_in,
                   mbase + ((size_t)(x0 + x) * d + l0) * b + k_in);
         }
       } else {                                // wide buckets: seg > kPairs
-        for (int e = tid; e < nx * seg; e += kPairs) {
-          const int x = e / seg, k = e - x * seg, l = k / b;
-          stage(l * pitch + x * b + (k - l * b),
-                mbase + ((size_t)(x0 + x) * d + l0) * b + k);
+        const int sg = nl * ns;
+        for (int e = tid; e < nx * sg; e += kPairs) {
+          const int x = e / sg, k = e - x * sg, l = k / ns, sl = k - l * ns;
+          stage(l * pitch + x * ns + sl,
+                mbase + ((size_t)(x0 + x) * d + l0 + l) * b + s0 + sl);
         }
       }
       asm volatile("cp.async.wait_all;\n" ::);
@@ -374,34 +579,69 @@ __host__ VertexWorkspace vertex_workspace(void* base, int m, int q, int d,
   return ws;
 }
 
-// cudaFuncSetAttribute once per process and size
+constexpr int kMaxDevices = 64;
+
+// cudaFuncSetAttribute once per device and size (the attribute belongs to
+// the current device's context); devices past kMaxDevices set it each time
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem, size_t& configured) {
-  if (smem <= configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+cudaError_t allow_smem(K kernel, size_t smem,
+                       size_t (&configured)[kMaxDevices]) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && smem <= configured[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) configured = smem;
+  if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = smem;
   return err;
 }
 
 }  // namespace
 
-// Both return a cudaError_t (0 on success); launch on `stream`, no sync.
-extern "C" int higgs_edge_probe(
-    const void* fp_s, const void* fp_d, const void* w, const void* t,
-    const void* idx, const void* mask, const void* fs, const void* fd,
-    const void* rows, const void* cols, unsigned int ts, unsigned int te,
-    int match_time, void* out, int m, int q, int d, int b, int r,
-    void* stream) {
-  if (q <= 0) return 0;
-  const int threads = 256;
-  const int blocks = (q * 32 + threads - 1) / threads;
-  edge_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)fp_s, (const int32_t*)fp_d, (const float*)w,
-      (const int32_t*)t, (const int32_t*)idx, (const uint8_t*)mask,
-      (const int32_t*)fs, (const int32_t*)fd, (const int32_t*)rows,
-      (const int32_t*)cols, ts, te, match_time, (float*)out, m, q, d, b, r);
-  return (int)cudaGetLastError();
+// All return a cudaError_t (0 on success); launch on `stream`, no sync.
+
+// K3 over n probe entries (`entries`: n host EdgeEntry records; idx/mask
+// of entry e at [off, off + m) of `idx`/`mask`), for q queries given at
+// the leaf level (f1s/f1d (q,), rows1/cols1 (q, r)); out: (n, q).  One
+// launch per kMaxEntries entries.
+extern "C" int higgs_edge_probe_levels(
+    const void* entries, int n, const void* idx, const void* mask,
+    const void* f1s, const void* rows1, const void* f1d, const void* cols1,
+    void* out, int q, int b, int r, int F1, void* stream) {
+  if (q <= 0 || n <= 0) return 0;
+  if (b < 1 || r < 1 || F1 < 1 || F1 > 32) return (int)cudaErrorInvalidValue;
+  const EdgeEntry* src = static_cast<const EdgeEntry*>(entries);
+  const EdgeQueries qs{(const int32_t*)f1s, (const int32_t*)rows1,
+                       (const int32_t*)f1d, (const int32_t*)cols1, q, r, b,
+                       F1};
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int e0 = 0; e0 < n; e0 += kMaxEntries) {
+    const int ne = n - e0 < kMaxEntries ? n - e0 : kMaxEntries;
+    EdgeEntries ents{};
+    for (int k = 0; k < ne; ++k) {
+      const EdgeEntry& e = src[e0 + k];
+      if (e.d < 1 || e.m < 0 || e.off < 0 || e.s < 0 || F1 - e.s < 1 ||
+          (e.s > 0 && F1 - e.s > 31))
+        return (int)cudaErrorInvalidValue;
+      ents.e[k] = e;
+    }
+    const dim3 grid((q + kEdgeWarps - 1) / kEdgeWarps, ne);
+    const int32_t* ix = (const int32_t*)idx;
+    const uint8_t* mk = (const uint8_t*)mask;
+    float* o = (float*)out + (size_t)e0 * q;
+    const bool fast =
+        r == 1   ? launch_edge_fast<1>(b, grid, s, ents, qs, ix, mk, o)
+        : r == 2 ? launch_edge_fast<2>(b, grid, s, ents, qs, ix, mk, o)
+        : r == 4 ? launch_edge_fast<4>(b, grid, s, ents, qs, ix, mk, o)
+                 : false;
+    if (!fast)
+      edge_probe_kernel<0, 0><<<grid, kEdgeWarps * 32, 0, s>>>(ents, qs, ix,
+                                                                mk, o);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 extern "C" size_t higgs_vertex_probe_workspace(int m, int q, int d,
@@ -412,14 +652,15 @@ extern "C" size_t higgs_vertex_probe_workspace(int m, int q, int d,
 }
 
 // `ws` holds higgs_vertex_probe_workspace(m, q, d, r) int32 words.
-// Takes b <= kStage and r <= kMaxPairs (cudaErrorInvalidValue otherwise).
+// Takes r <= kMaxPairs (cudaErrorInvalidValue otherwise): a query's r
+// candidate pairs go through one launch.
 extern "C" int higgs_vertex_probe(
     const void* fp, const void* w, const void* t, const void* idx,
     const void* mask, const void* fv, const void* rows, unsigned int ts,
     unsigned int te, int match_time, int dir_in, void* out, void* ws_base,
     int m, int q, int d, int b, int r, void* stream) {
   if (q <= 0) return 0;
-  if (b < 1 || b > kStage || r < 1 || r > kMaxPairs)
+  if (b < 1 || r < 1 || r > kMaxPairs)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   size_t words = 0;
@@ -428,7 +669,7 @@ extern "C" int higgs_vertex_probe(
   const size_t gsmem = (2 * kSeg + kHash + nblk + 32) * sizeof(int32_t);
   const size_t psmem =
       (size_t)(match_time ? 3 : 2) * lb * stage_pitch(b) * sizeof(int32_t);
-  static size_t conf[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+  static size_t conf[3][kMaxDevices] = {};
   cudaError_t err = allow_smem(vertex_prep_kernel, gsmem, conf[2]);
   if (err == cudaSuccess)
     err = match_time ? allow_smem(vertex_probe_kernel<true>, psmem, conf[1])

@@ -297,6 +297,161 @@ def test_vertex_probe_kernel_time_filter_float_weights(cuda, d):
                      float_w=True)
 
 
+def level_case(rng, dev, kw, plan, q, float_w=False, m_range=(1, 5),
+               min_m=1):
+    """K3 entries over random level slabs (``plan``: (level, match_time)
+    per entry; one slab set per level, of m_range[0] + 2 or more rows),
+    half the queries planted on a candidate bucket of each entry, and the
+    leaf-level query side."""
+    p = HiggsParams(**kw)
+    r = p.r if p.use_mmb else 1
+
+    def draw(lo, hi, n):
+        return torch.from_numpy(rng.integers(lo, hi, n, dtype=np.uint64)
+                                .astype(np.int64))
+
+    f1s, f1d = draw(0, 1 << p.F1, q), draw(0, 1 << p.F1, q)
+    rows1 = tcm.chain_from_base(draw(0, p.d1, q), r, p.d1)
+    cols1 = tcm.chain_from_base(draw(0, p.d1, q), r, p.d1)
+    slabs, caps = {}, {}
+    for level in sorted({lv for lv, _ in plan}):
+        caps[level] = int(rng.integers(*m_range)) + 2
+        slabs[level] = probe_slabs(rng, caps[level], p.d(level), p.b,
+                                   p.F(level), "cpu", float_w)
+    entries = []
+    for level, match_time in plan:
+        cap = caps[level]
+        m = int(rng.integers(min(min_m, cap), cap + 1))
+        idx = rng.permutation(cap)[:m].astype(np.int32)
+        mask = rng.random(m) < 0.75
+        mask[0] = True
+        fs, rows = tcm.level_coords(f1s, rows1, level, p)
+        fd, cols = tcm.level_coords(f1d, cols1, level, p)
+        live, sl = idx[mask], slabs[level]
+        for i in range(0, q, 2):
+            c = (int(live[rng.integers(0, len(live))]),
+                 int(rows[i, rng.integers(0, r)]),
+                 int(cols[i, rng.integers(0, r)]), int(rng.integers(0, p.b)))
+            sl.fp_s[c], sl.fp_d[c] = int(fs[i]), int(fd[i])
+            sl.w[c] = float(rng.integers(1, 100))
+            sl.t[c] = int(rng.integers(100, 701))
+        entries.append((level, idx, mask, match_time))
+    dslabs = {lv: tcm.NodeState(*(f.to(dev) for f in sl))
+              for lv, sl in slabs.items()}
+    entries = [tpr.EdgeEntry(dslabs[lv], idx, mask, lv, 100, 700, mt)
+               for lv, idx, mask, mt in entries]
+    i32 = torch.int32
+    leaf = [x.to(i32).to(dev) for x in (f1s, rows1, f1d, cols1)]
+    return p, entries, leaf
+
+
+def check_levels(p, entries, leaf, float_w=False):
+    before = tpr.edge_probe.launches
+    got = tpr.edge_probe_levels(entries, *leaf, params=p)
+    n, q = len(entries), leaf[0].shape[0]
+    assert tpr.edge_probe.launches == before + (-(-n // tpr.MAX_ENTRIES)
+                                                if n and q else 0)
+    want = tpr.edge_probe_levels_plain(entries, *leaf, params=p)
+    assert got.shape == want.shape == (n, q)
+    if float_w:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got, want)
+    return got
+
+
+def levels(n, filtered=True):
+    return [(lv, False) for lv in range(1, n + 1)] + \
+        ([(1, True)] if filtered else [])
+
+
+@pytest.mark.parametrize("plan,kw,q", [
+    (levels(7), dict(d1=2, F1=12, b=3, r=2), 300),
+    (levels(3), dict(d1=4, F1=12, b=1, r=2, use_mmb=False), 64),
+    (levels(2), dict(d1=4, F1=12, b=9, r=4), 64),          # any-shape kernel
+    (levels(5), dict(d1=2, F1=5, b=3, r=2), 100),          # F = 1 at level 5
+    (levels(3), dict(d1=4, F1=13, b=2, r=3, theta=16), 77),
+    (levels(2), dict(d1=8, F1=14, b=4, r=4), 33),
+    (levels(2), dict(d1=64, F1=14, b=1, r=40), 50),        # r > 32
+    (levels(4), dict(d1=128, F1=14, b=3, r=4), 1000),      # d = 1024
+    (levels(2), dict(d1=16, F1=19, b=3, r=4), 1),
+    (levels(2), dict(d1=16, F1=19, b=3, r=4), 0),
+    # a full descriptor list, and one past it (two launches)
+    ([(1 + k % 5, k % 3 == 0) for k in range(16)],
+     dict(d1=4, F1=12, b=3, r=4), 96),
+    ([(1 + k % 5, k % 3 == 0) for k in range(19)],
+     dict(d1=4, F1=12, b=3, r=4), 96),
+])
+def test_edge_probe_levels_kernel_matches_plain(cuda, plan, kw, q):
+    rng = np.random.default_rng(len(plan) * 1000 + q)
+    p, entries, leaf = level_case(rng, cuda, kw, plan, q)
+    got = check_levels(p, entries, leaf)
+    if q > 1:
+        assert bool((got[:, ::2] > 0).any(dim=1).all())      # planted hits
+
+
+@pytest.mark.parametrize("kw", [dict(d1=8, F1=14, b=3, r=4),
+                                dict(d1=4, F1=12, b=5, r=3)])
+def test_edge_probe_levels_kernel_float_weights(cuda, kw):
+    rng = np.random.default_rng(kw["b"])
+    p, entries, leaf = level_case(rng, cuda, kw, levels(3), 200,
+                                  float_w=True)
+    check_levels(p, entries, leaf, float_w=True)
+
+
+def test_edge_probe_levels_kernel_many_matrices(cuda):
+    """More matrices in one entry than a warp's lanes hold (32 per pass),
+    many passes."""
+    rng = np.random.default_rng(600)
+    for kw in (dict(d1=4, F1=12, b=3, r=4), dict(d1=4, F1=12, b=6, r=3)):
+        p, entries, leaf = level_case(rng, cuda, kw, levels(1), 64,
+                                      m_range=(600, 601), min_m=550)
+        assert min(len(e.idx) for e in entries) > 16 * 32
+        check_levels(p, entries, leaf)
+
+
+@pytest.mark.parametrize("d,b", [(16, 769), (16, 1024), (256, 769)])
+@pytest.mark.parametrize("match_time,ts,te", [(False, 0, 0),
+                                              (True, 100, 700)])
+def test_vertex_probe_kernel_wide_buckets(cuda, d, b, match_time, ts, te):
+    """b > 768: a cross position's slots are staged in chunks."""
+    rng = np.random.default_rng(d + b)
+    m = 2 if d < 256 else 1                 # d = 256: two lines per block
+    slabs = probe_slabs(rng, m, d, b, 12, cuda)
+    idx = torch.arange(m, dtype=torch.int32, device=cuda)
+    mask = torch.ones(m, dtype=torch.bool, device=cuda)
+    check_vertex(rng, slabs, idx, mask, rng.integers(0, d, 300), 4, ts, te,
+                 match_time)
+
+
+def test_sketch_wide_buckets_answer_queries(cuda):
+    """A sketch with b = 1024 ingests and answers vertex and edge queries
+    on the card as the plain versions do; an edge batch is one K3
+    launch."""
+    stream = lkml_like_stream(20_000, seed=5)
+    p = HiggsParams(d1=2, F1=14, b=1024, r=2)
+    sks = [HiggsSketch(p, device=cuda, kernels=k) for k in (True, False)]
+    for sk in sks:
+        sk.insert(*stream)
+        sk.flush()
+    assert sks[0].n_levels >= 2
+    t0, t1 = int(stream[3][0]), int(stream[3][-1])
+    qs = [VertexQuery(stream[0][:200], t0, t1, "out"),
+          VertexQuery(stream[1][:200], t0, (t0 + t1) // 2, "in"),
+          EdgeQuery(stream[0][:300], stream[1][:300], t0, t1)]
+    v0, e0 = tpr.vertex_probe.launches, tpr.edge_probe.launches
+    got = sks[0].query(qs).values
+    assert tpr.vertex_probe.launches > v0 and tpr.edge_probe.launches == e0 + 1
+    for x, y in zip(got, sks[1].query(qs).values):
+        np.testing.assert_array_equal(x, y)
+    assert (np.asarray(got[0]) > 0).all()
+
+
+def test_sketch_rejects_more_candidates_than_the_vertex_kernel_takes(cuda):
+    with pytest.raises(ValueError, match="vertex-probe kernel"):
+        HiggsSketch(HiggsParams(r=tpr.VERTEX_MAX_R + 1), device=cuda)
+
+
 def test_sketch_kernels_match_plain_end_to_end(cuda):
     stream = lkml_like_stream(20_000, seed=3)
     sks = [HiggsSketch(HiggsParams(), device=cuda, kernels=k)

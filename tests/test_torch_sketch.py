@@ -92,14 +92,20 @@ def query_batches(stream, t_lo, t_hi, cut):
     return batches
 
 
-def assert_same_answers(ref, port, stream):
+def assert_same_answers(ref, port, stream, rtol=0.0):
+    """Equal answers (``rtol`` > 0: within it, for float weights, which
+    the two sum in other orders) and planner counters."""
     t = stream[3]
     cut = int(port.leaf_ends[len(port.leaf_ends) // 2]) - 3
     rqs, tqs = query_batches(stream, int(t[0]), int(t[-1]), cut)
     ra, ta = ref.query(rqs), port.query(tqs)
     for i, (x, y) in enumerate(zip(ra.values, ta.values)):
-        np.testing.assert_array_equal(np.asarray(y), np.asarray(x),
-                                      err_msg=f"query {i}")
+        if rtol:
+            np.testing.assert_allclose(np.asarray(y), np.asarray(x),
+                                       rtol=rtol, err_msg=f"query {i}")
+        else:
+            np.testing.assert_array_equal(np.asarray(y), np.asarray(x),
+                                          err_msg=f"query {i}")
     for f in ("boundary_searches", "plan_cache_hits", "plan_cache_misses",
               "device_dispatches", "buckets_probed", "ob_probes"):
         assert getattr(ta.stats, f) == getattr(ra.stats, f), f
@@ -140,6 +146,58 @@ def test_deep_cascade_with_overflow(seed, nv):
     ref, port = build_pair(SMALL, stream, cuts=(450,))
     assert sum(p.n > 0 for p in port.pools[1:]) >= 2, "no cascade"
     assert any(lvl > 1 for lvl, _ in port.ob.data), "no parent spill"
+    assert_state_equal(ref, port)
+    assert_same_answers(ref, port, stream)
+
+
+def case_stream(case):
+    src, dst, w, t = small_stream(7, 800, 48, 2500)
+    rng = np.random.default_rng(70)
+    if case == "float_weights":
+        w = rng.exponential(2.0, len(w)).astype(np.float32)
+    elif case == "negative_weights":
+        w = rng.integers(-6, 10, len(w)).astype(np.float32)
+    elif case == "t_near_2_32":          # the latest ranges stay below 2^32
+        t = t + np.uint32(2 ** 32 - 4000)
+    return src, dst, w, t
+
+
+PARITY_CASES = {
+    "float_weights": {},
+    "negative_weights": {},
+    "theta_16": dict(theta=16),
+    "no_mmb": dict(use_mmb=False),
+    "b1_r1": dict(b=1, r=1),
+    "r_eq_d1": dict(r=4),
+    "t_near_2_32": {},
+    "F1_5": dict(F1=5),                  # 3 fingerprint bits at level 3
+    "interleaved": {},
+}
+
+
+@pytest.mark.parametrize("case", list(PARITY_CASES))
+def test_sketch_parity_cases(case):
+    """Beyond the integer-weight streams above: float and negative
+    weights, other geometries, timestamps near 2^32, and queries between
+    inserts (no flush), each at the SMALL geometry otherwise."""
+    stream = case_stream(case)
+    kw = {**SMALL, **PARITY_CASES[case]}
+    rtol = 1e-6 if case == "float_weights" else 0.0
+    if case != "interleaved":
+        ref, port = build_pair(kw, stream, cuts=(300,))
+        assert_state_equal(ref, port)
+        assert_same_answers(ref, port, stream, rtol)
+        return
+    ref = RefSketch(RefParams(insert_backend="pallas", pool_storage="host",
+                              interpret=True, batched_ingest=True, **kw))
+    port = HiggsSketch(HiggsParams(insert_backend="pallas",
+                                   batched_ingest=True, **kw), device="cpu")
+    for lo, hi in ((0, 250), (250, 520), (520, 800)):
+        for sk in (ref, port):
+            sk.insert(*(a[lo:hi] for a in stream))
+        assert_same_answers(ref, port, tuple(a[:hi] for a in stream))
+    for sk in (ref, port):
+        sk.flush()
     assert_state_equal(ref, port)
     assert_same_answers(ref, port, stream)
 
