@@ -380,6 +380,52 @@ def chain_bench(torch, lib_path, build) -> dict:
     return res
 
 
+def l2_bench(torch, lib_path) -> dict:
+    """Read rates of the card (``l2_read_bench`` in
+    ``tools/chain_bench.cu``, every SM at full occupancy, loads through
+    the L2 only): a coalesced stream of 16-byte loads over 16 MiB (L2
+    resident) and over 1 GiB (HBM), and 4-byte loads of random 32-byte
+    sectors of 16 MiB, eight in flight per thread, counted as whole
+    sectors.  TB/s over one timed launch after a warm-up."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    fn = ctypes.CDLL(str(lib_path)).l2_read_bench
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    res = {}
+    for name, mode, nbytes, reps in (("stream_l2_16MiB", 0, 16 << 20, 256),
+                                     ("stream_hbm_1GiB", 0, 1 << 30, 2),
+                                     ("sectors_l2_16MiB", 1, 16 << 20, 1024)):
+        buf = torch.ones(nbytes // 4, dtype=torch.int32, device=DEVICE)
+        stream = torch.cuda.current_stream().cuda_stream
+        grid = sms * 8                          # 8 CTAs of 256 threads
+
+        def launch():
+            _build.check(fn(mode, buf.data_ptr(), nbytes, reps, grid,
+                            out.data_ptr(), stream), "l2_read_bench")
+
+        launch()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        launch()
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b)
+        moved = (nbytes * reps if mode == 0
+                 else grid * 256 * reps * 32)   # whole sectors
+        res[name] = dict(ms=ms, bytes=moved, tb_s=moved / ms / 1e9)
+        print(f"read rate {name}: {moved / ms / 1e9:.3f} TB/s ({moved} "
+              f"bytes in {ms:.4f} ms)", flush=True)
+        del buf
+    return res
+
+
 def k1_k2_phase(torch, tcm, li, captured, chain):
     """K1 on the inputs of the main path's first drain (fresh leaves, as
     the drain had them), K2 on its first leaf: bit-exact against the
@@ -531,18 +577,15 @@ def probe_phase(torch, tcm, pr, sk, queries):
         lo = ts_mid if level == 1 else 0
         for match_time, (ts, te) in ((False, (0, 0xFFFFFFFF)),
                                      (True, (lo, te_mid))):
-            f4 = 16 if match_time else 12
             sfx = "_time" if match_time else ""
             args = (slabs, idx, mask, fs, fd, rows, cols, ts, te)
             got = pr.edge_probe(*args, match_time=match_time)
             want = pr.edge_probe_plain(*args, match_time=match_time)
             require(torch.equal(got, want), f"edge_probe L{level} "
                     f"match_time={match_time}: differs from plain")
-            bucket = ((idx.to(torch.int64)[None, :, None, None] * d
-                       + rows.to(torch.int64)[:, None, :, None]) * d
-                      + cols.to(torch.int64)[:, None, None, :])
-            nbytes = (int(torch.unique(bucket).numel()) * b * f4
-                      + Q * (8 + 8 * r) + m * 5 + Q * 4)
+            slot_bytes, _, _ = edge_slot_bytes(torch, slabs, idx, mask, fs,
+                                               fd, rows, cols, match_time)
+            nbytes = slot_bytes + Q * (8 + 8 * r) + m * 5 + Q * 4
             kw = dict(match_time=match_time)
             row = timed_probe(
                 torch, lambda: pr.edge_probe(*args, **kw),
@@ -574,31 +617,69 @@ def probe_phase(torch, tcm, pr, sk, queries):
     return tot, levels
 
 
+def edge_slot_bytes(torch, slabs, idx, mask, fs, fd, rows, cols,
+                    match_time):
+    """Slab bytes K3 must read for one entry, at its level's coordinates:
+    fp_s of every distinct candidate slot of the unmasked matrices, fp_d
+    of the distinct slots whose fp_s equals a querying fingerprint, and w
+    (and t, with the time filter) of the distinct slots matching both,
+    as this run's data has them.  Also the bytes of the 32-byte sectors
+    that the kernel's loads touch, counted per query (a sector shared by
+    two queries counts twice; the L1 may serve the second), for fp_s
+    alone and for all the fields it loads."""
+    i64 = torch.int64
+    d, b = slabs.fp_s.shape[1], slabs.fp_s.shape[3]
+    live = idx.to(i64)[mask.to(torch.bool)]
+    bucket = ((live[None, :, None, None] * d
+               + rows.to(i64)[:, None, :, None]) * d
+              + cols.to(i64)[:, None, None, :])          # (q, m, r, r)
+    slot = bucket[..., None] * b + torch.arange(b, device=bucket.device)
+
+    def field(f):
+        return f.reshape(-1)[slot].to(i64) & 0xFFFFFFFF
+
+    def u32(x):
+        return (x.to(i64) & 0xFFFFFFFF)[:, None, None, None, None]
+
+    def sectors(sel):                   # distinct (query, sector) pairs
+        qi = torch.arange(slot.shape[0], device=slot.device)
+        key = qi[:, None, None, None, None] * (slabs.fp_s.numel() // 8 + 1) \
+            + slot // 8
+        return 32 * int(torch.unique(key[sel]).numel())
+
+    hit_s = field(slabs.fp_s) == u32(fs)
+    hit = hit_s & (field(slabs.fp_d) == u32(fd))
+    nbytes = (4 * int(torch.unique(slot).numel())
+              + 4 * int(torch.unique(slot[hit_s]).numel())
+              + (8 if match_time else 4) * int(torch.unique(slot[hit])
+                                               .numel()))
+    fp_s_sectors = sectors(torch.ones_like(hit))
+    all_sectors = (fp_s_sectors + sectors(hit_s)
+                   + (2 if match_time else 1) * sectors(hit))
+    return nbytes, fp_s_sectors, all_sectors
+
+
 def edge_levels_bound_ms(torch, tcm, p, entries, leaf):
-    """Bytes of one K3 launch over ``entries``: the distinct candidate
-    buckets' slots of each entry (fp_s, fp_d, w, and t with the time
-    filter), the leaf-level queries once, the matrices' idx/mask and the
-    answers; as ms at the HBM rate.  Also the bytes of the 32-byte
-    sectors that the fp_s reads touch, summed over queries (each query's
-    buckets read once, no sharing between queries)."""
+    """Bytes of one K3 launch over ``entries`` (:func:`edge_slot_bytes`
+    of each entry, the leaf-level queries once, the matrices' idx/mask
+    and the answers) as ms at the HBM rate, and the sector bytes of its
+    fp_s loads and of all its slab loads."""
     f1s, rows1, f1d, cols1 = leaf
     q, r = rows1.shape
     nbytes = q * (8 + 8 * r) + q * 4 * len(entries)
-    sector_bytes = 0
+    sector_bytes = load_sector_bytes = 0
     for e in entries:
-        d, b = e.slabs.fp_s.shape[1], e.slabs.fp_s.shape[3]
-        _, rows = tcm.level_coords(f1s, rows1, e.level, p)
-        _, cols = tcm.level_coords(f1d, cols1, e.level, p)
-        idx = torch.as_tensor(e.idx[e.mask], dtype=torch.int64,
-                              device=f1s.device)
-        bucket = ((idx[None, :, None, None] * d + rows[:, None, :, None])
-                  * d + cols[:, None, None, :])
-        nbytes += (int(torch.unique(bucket).numel()) * b
-                   * (16 if e.match_time else 12) + len(e.idx) * 5)
-        first = bucket * (4 * b)                  # byte offsets of fp_s
-        sector_bytes += 32 * int(((first + 4 * b - 1) // 32 - first // 32
-                                  + 1).sum())
-    return nbytes / HBM_BYTES_PER_S * 1e3, sector_bytes
+        fs, rows = tcm.level_coords(f1s, rows1, e.level, p)
+        fd, cols = tcm.level_coords(f1d, cols1, e.level, p)
+        dev = f1s.device
+        slot_bytes, fp_s_sectors, all_sectors = edge_slot_bytes(
+            torch, e.slabs, torch.as_tensor(e.idx, device=dev),
+            torch.as_tensor(e.mask, device=dev), fs, fd, rows, cols,
+            e.match_time)
+        nbytes += slot_bytes + len(e.idx) * 5
+        sector_bytes += fp_s_sectors
+        load_sector_bytes += all_sectors
+    return nbytes / HBM_BYTES_PER_S * 1e3, sector_bytes, load_sector_bytes
 
 
 def edge_levels_phase(torch, tcm, pr, sk, queries, captured, stream):
@@ -632,19 +713,22 @@ def edge_levels_phase(torch, tcm, pr, sk, queries, captured, stream):
         want = pr.edge_probe_levels_plain(entries, *leaf, params=p)
         require(torch.equal(got, want), f"edge_probe_levels {tag}: differs "
                 f"from plain")
-        bound, sector_bytes = edge_levels_bound_ms(torch, tcm, p, entries,
-                                                   leaf)
+        bound, sector_bytes, load_sectors = edge_levels_bound_ms(
+            torch, tcm, p, entries, leaf)
         row = timed_probe(
             torch, lambda: pr.edge_probe_levels(entries, *leaf, params=p),
             lambda: pr.edge_probe_levels_plain(entries, *leaf, params=p),
             f"edge_probe_levels {tag}: {len(entries)} entries in one launch, "
-            f"levels {[e.level for e in entries]}, fp_s sectors "
-            f"{sector_bytes} bytes", bound, None)
+            f"levels {[e.level for e in entries]}, sectors: fp_s "
+            f"{sector_bytes} bytes, all loads {load_sectors} bytes", bound,
+            None)
         err = float((got - want).abs().max()) if got.numel() else 0.0
         row.update(entries=len(entries), max_abs_err=err,
-                   nonzero=int((got > 0).sum()), sector_bytes=sector_bytes)
+                   nonzero=int((got > 0).sum()), sector_bytes=sector_bytes,
+                   load_sector_bytes=load_sectors)
         rows[tag] = row
 
+    plain_entries = None                          # no time filter
     for match_time in (False, True):
         entries = []
         for level in range(1, sk.n_levels + 1):
@@ -657,6 +741,8 @@ def edge_levels_phase(torch, tcm, pr, sk, queries, captured, stream):
                 np.ones(len(ids), bool), level, ts, te, match_time))
         measure("all levels" + (", time filter" if match_time else ""),
                 entries, leaf)
+        plain_entries = plain_entries or entries
+    sweep = edge_levels_sweep(torch, pr, p, plain_entries, leaf)
     for name, (entries, batch_leaf) in zip(ranges_of(stream[3]),
                                            captured["edge_batches"]):
         measure(f"main path {name}", entries, batch_leaf)
@@ -671,7 +757,32 @@ def edge_levels_phase(torch, tcm, pr, sk, queries, captured, stream):
         print(f"phase planner edge batch {name}: {np.median(secs) * 1e3:.2f} "
               f"ms per _edge_batch call ({Q} queries, overflow-block scans "
               f"included)", flush=True)
-    return rows
+    return rows, sweep
+
+
+def edge_levels_sweep(torch, pr, p, entries, leaf):
+    """What the all-level K3 launch's time follows: back to back and cold
+    over the first k entries (k = 1..n, levels from the leaves up), and
+    over all entries with the first q/4 and q/2 queries."""
+    out = []
+
+    def one(tag, ents, lf):
+        def fn():
+            pr.edge_probe_levels(ents, *lf, params=p)
+        ms, covered = b2b_ms(torch, fn)
+        cold, cov2 = cold_ms(torch, fn)
+        out.append(dict(tag=tag, entries=len(ents), q=lf[0].shape[0], ms=ms,
+                        cold_ms=cold, covered=covered and cov2))
+        print(f"sweep edge_probe_levels {tag}: {len(ents)} entries, "
+              f"q={lf[0].shape[0]}: {ms:.4f} ms back to back, {cold:.4f} ms "
+              f"cold (covered={covered and cov2})", flush=True)
+
+    for k in range(1, len(entries) + 1):
+        one(f"first {k} entries", entries[:k], leaf)
+    for frac in (4, 2):
+        n = leaf[0].shape[0] // frac
+        one(f"q/{frac}", entries, tuple(x[:n] for x in leaf))
+    return out
 
 
 def wide_bucket_phase(torch, tcm, pr):
@@ -931,8 +1042,9 @@ def run(torch) -> dict:
     k12 = k1_k2_phase(torch, tcm, li, captured, chain)
     k34, probe_levels = probe_phase(torch, tcm, pr, sk, queries)
     shared, shared_levels = shared_lines_phase(torch, tcm, pr, sk, stream)
-    edge_levels = edge_levels_phase(torch, tcm, pr, sk, queries, captured,
-                                    stream)
+    edge_levels, k3_sweep = edge_levels_phase(torch, tcm, pr, sk, queries,
+                                              captured, stream)
+    l2 = l2_bench(torch, chain_lib[0])
     wide = wide_bucket_phase(torch, tcm, pr)
     for name, tot in (*k34.items(), ("vertex_probe_shared", shared)):
         print(f"sum over levels {name}: kernel {tot['ms']:.4f} ms back to "
@@ -966,7 +1078,8 @@ def run(torch) -> dict:
     report = dict(kernels=kernels, k1_k2=k12, chain=chain, probes=k34,
                   probe_levels=probe_levels, shared_lines=shared,
                   shared_lines_levels=shared_levels,
-                  edge_levels=edge_levels, wide_buckets=wide, profile=prof,
+                  edge_levels=edge_levels, edge_levels_sweep=k3_sweep,
+                  l2_read=l2, wide_buckets=wide, profile=prof,
                   answers=are, query_stats=stats, ingest_s=ingest_s,
                   query_s=q_s, peak_bytes=peak,
                   total_s=time.perf_counter() - t0)

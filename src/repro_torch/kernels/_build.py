@@ -7,8 +7,9 @@ include no PyTorch header, so a build takes seconds; all sources compile
 at once, one ``nvcc`` process each.
 
 Libraries land in ``build/kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of their source, so an edited source
-rebuilds and an unchanged one loads as it is.  Nothing is compiled when
+``.gitignore``), named by a hash of their source and the shared headers
+(``csrc/*.cuh``), so an edited source rebuilds and an unchanged one loads
+as it is.  Nothing is compiled when
 this module is imported: the first kernel call (or :func:`build_all`)
 builds.
 """
@@ -56,8 +57,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    # the shared headers count: an edited header rebuilds every source
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> float:

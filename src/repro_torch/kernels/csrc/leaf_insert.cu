@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kEmpty = -1;            // int32 bit pattern of 0xFFFFFFFF
@@ -318,23 +320,6 @@ __global__ void __launch_bounds__(32) leaf_insert_any_kernel(
     idx_m[moff + c] = s_idx[c];
     w_m[moff + c] = s_w[c];
   }
-}
-
-constexpr int kMaxDevices = 64;
-
-// cudaFuncSetAttribute once per device and size (the attribute belongs to
-// the current device's context); devices past kMaxDevices set it each time
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem,
-                       size_t (&configured)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && smem <= configured[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = smem;
-  return err;
 }
 
 template <int B>

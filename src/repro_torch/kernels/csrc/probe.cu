@@ -36,8 +36,8 @@
 //     the lanes by shuffle: the host computes no per-level coordinates,
 //     and no barrier or shared memory is needed;
 //   - lane l walks slots l, l + 32, ... in the mixed radix (matrix, i, j,
-//     slot), stepped by carries (no division in the loop; r and b are
-//     template constants for r in {1, 2, 4} and b in {1..4}), so
+//     slot), stepped by carries (no division in the loop; the paper's
+//     r = 4, b = 3 as template constants, any other shape at run time), so
 //     neighbouring lanes read neighbouring slots of a bucket; it issues
 //     the fp_s loads of kSlots slots at once, then fp_d only for the
 //     slots still matching, then t and w: a round trip or three per
@@ -46,8 +46,8 @@
 //     levels, and 12 slots in flight slower than 6 (fewer warps fit);
 //   - each lane adds its matches in a fixed order and a fixed shuffle tree
 //     sums the lanes: deterministic, no atomics.
-//   Over all levels the launch is bound by the 32-byte sectors its
-//   scattered 12-byte buckets touch in the L2, not by their useful bytes.
+//   Over all levels the launch still takes several times its byte bound;
+//   what binds it is measured in PERF.md (sections 6 and 7).
 //
 // K4 (vertex): many queries share candidate lines (query vertices are
 //   Zipf-drawn and a level has at most m*d distinct lines), so a kernel per
@@ -83,6 +83,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -214,7 +216,7 @@ __device__ __forceinline__ float probe_slots(const EdgeEntry& E,
 // m*r*r*b candidate slots, lane l taking slots l, l + 32, ..., in the
 // mixed radix (matrix, i, j, slot) stepped by carries, so neighbouring
 // lanes read neighbouring slots of a bucket.  R, B > 0 fix r and b at
-// compile time (the common shapes); R = B = 0 takes the launch's.
+// compile time; R = B = 0 takes the launch's.
 template <int R, int B>
 __global__ void __launch_bounds__(kEdgeWarps * 32) edge_probe_kernel(
     const __grid_constant__ EdgeEntries ents, const EdgeQueries qs,
@@ -267,25 +269,6 @@ __global__ void __launch_bounds__(kEdgeWarps * 32) edge_probe_kernel(
   }
   acc = warp_sum(acc);
   if (lane == 0) out[(size_t)blockIdx.y * qs.q + qi] = acc;
-}
-
-template <int R>
-bool launch_edge_fast(int b, dim3 grid, cudaStream_t s,
-                      const EdgeEntries& ents, const EdgeQueries& qs,
-                      const int32_t* idx, const uint8_t* mask, float* out) {
-  switch (b) {
-#define HIGGS_EDGE_CASE(B)                                         \
-  case B:                                                          \
-    edge_probe_kernel<R, B><<<grid, kEdgeWarps * 32, 0, s>>>(      \
-        ents, qs, idx, mask, out);                                 \
-    return true;
-    HIGGS_EDGE_CASE(1)
-    HIGGS_EDGE_CASE(2)
-    HIGGS_EDGE_CASE(3)
-    HIGGS_EDGE_CASE(4)
-#undef HIGGS_EDGE_CASE
-  }
-  return false;
 }
 
 // ---------------------------------------------------------------------------
@@ -579,24 +562,6 @@ __host__ VertexWorkspace vertex_workspace(void* base, int m, int q, int d,
   return ws;
 }
 
-constexpr int kMaxDevices = 64;
-
-// cudaFuncSetAttribute once per device and size (the attribute belongs to
-// the current device's context); devices past kMaxDevices set it each time
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem,
-                       size_t (&configured)[kMaxDevices]) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && smem <= configured[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = smem;
-  return err;
-}
-
 }  // namespace
 
 // All return a cudaError_t (0 on success); launch on `stream`, no sync.
@@ -630,12 +595,12 @@ extern "C" int higgs_edge_probe_levels(
     const int32_t* ix = (const int32_t*)idx;
     const uint8_t* mk = (const uint8_t*)mask;
     float* o = (float*)out + (size_t)e0 * q;
-    const bool fast =
-        r == 1   ? launch_edge_fast<1>(b, grid, s, ents, qs, ix, mk, o)
-        : r == 2 ? launch_edge_fast<2>(b, grid, s, ents, qs, ix, mk, o)
-        : r == 4 ? launch_edge_fast<4>(b, grid, s, ents, qs, ix, mk, o)
-                 : false;
-    if (!fast)
+    // the paper's shape (r = 4, b = 3) has its own instance: 1.6x faster
+    // than the runtime-shape form at the smoke shapes (PERF.md, section 6)
+    if (r == 4 && b == 3)
+      edge_probe_kernel<4, 3><<<grid, kEdgeWarps * 32, 0, s>>>(ents, qs, ix,
+                                                                mk, o);
+    else
       edge_probe_kernel<0, 0><<<grid, kEdgeWarps * 32, 0, s>>>(ents, qs, ix,
                                                                 mk, o);
     const cudaError_t err = cudaGetLastError();

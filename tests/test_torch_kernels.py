@@ -452,3 +452,22 @@ def test_aggregate_children_matches_host_twin(level, seed):
             g.view(np.uint32), np.asarray(want[name]).view(np.uint32),
             err_msg=name)
     np.testing.assert_array_equal(tspill.numpy(), spill)
+
+
+def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
+    # a library is named by a hash of its source and of the shared
+    # headers, so an edited header rebuilds every source that includes it
+    from repro_torch.kernels import _build
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._lib_path(n) for n in _build.SOURCES}
+    header = tmp_path / "common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    (tmp_path / "probe.cu").write_text(
+        (tmp_path / "probe.cu").read_text() + "\n")
+    assert _build._lib_path("probe") != after["probe"]
+    assert _build._lib_path("leaf_insert") == after["leaf_insert"]

@@ -1,20 +1,21 @@
 #!/usr/bin/env bash
-# Time a parent commit against a change on one card: chip_smoke.py runs
-# four times in turn (parent, change, change, parent), each from its own
-# checkout, so both are measured on the same card, interleaved.
+# Time commits against each other on one card: chip_smoke.py runs from
+# each checkout in turn, forward and then backward (for two: parent,
+# change, change, parent), so all are measured on the same card,
+# interleaved.
 #
 #   git archive <parent> | tar -x -C build/parent      # build/ is ignored
 #   git archive $(git write-tree) | tar -x -C build/change
-#   bash tools/chip_compare.sh build/parent build/change chiprun_out/cmp
+#   bash tools/chip_compare.sh chiprun_out/cmp parent=build/parent \
+#       change=build/change
 #
-# (on a machine with one NVIDIA GPU; four runs take about 8 minutes)
-# Each run's JSON report lands in <out>/<run>.json, its standard output
-# in <out>/<run>.log and its errors in <out>/<run>.err.  Exits non-zero if
-# any run failed.
+# (on a machine with one NVIDIA GPU; each run takes about 2 minutes)
+# Run i (1 forward, 2 backward) of checkout NAME writes its JSON report
+# to <out>/NAME<i>.json, its standard output to <out>/NAME<i>.log and its
+# errors to <out>/NAME<i>.err.  Exits non-zero if any run failed.
 set -u
-PARENT=$(realpath "$1")
-CHANGE=$(realpath "$2")
-OUT=$(realpath -m "$3")
+OUT=$(realpath -m "$1")
+shift
 mkdir -p "$OUT"
 rc=0
 run() {
@@ -29,8 +30,12 @@ run() {
   tail -n 3 "$OUT/$name.err"
   [ "$r" -eq 0 ] || rc=1
 }
-run parent1 "$PARENT"
-run change1 "$CHANGE"
-run change2 "$CHANGE"
-run parent2 "$PARENT"
+names=() dirs=()
+for spec in "$@"; do
+  names+=("${spec%%=*}")
+  dirs+=("$(realpath "${spec#*=}")")
+done
+n=${#names[@]}
+for ((i = 0; i < n; i++)); do run "${names[i]}1" "${dirs[i]}"; done
+for ((i = n - 1; i >= 0; i--)); do run "${names[i]}2" "${dirs[i]}"; done
 exit $rc

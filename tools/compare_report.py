@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Summarise a parent-versus-change chip call (``tools/chip_compare.sh``).
+"""Summarise a chip call of ``tools/chip_compare.sh``.
 
-    python3 tools/compare_report.py chiprun_out/cmp
+    python3 tools/compare_report.py chiprun_out/cmp [CHANGE [PARENT]]
 
-reads ``parent1/2.json`` and ``change1/2.json`` (``chip_smoke.py``
-reports) from the directory and prints, each as the mean of its two
-runs (the change's first, the parent's in brackets, then parent /
-change): the per-level edge- and vertex-probe rows both versions have,
-the sums over levels, the kernels' JSON rows, the change's all-level
-edge-probe launches, its planner edge batches, its wide-bucket vertex
-probes, and the end-to-end figures.
+reads ``PARENT1/2.json`` and ``CHANGE1/2.json`` (``chip_smoke.py``
+reports; the names default to ``parent`` and ``change``) from the
+directory and prints, each as the mean of its two runs (the change's
+first, the parent's in brackets, then parent / change): the per-level
+edge- and vertex-probe rows both versions have, the sums over levels,
+the kernels' JSON rows, the all-level edge-probe launches and the
+planner edge batches (beside the parent's where it has them), the
+change's all-level launch over the first k entries and fewer queries,
+its read rates, its wide-bucket vertex probes, and the end-to-end
+figures.
 """
 from __future__ import annotations
 
@@ -47,7 +50,9 @@ def level_rows(rep, kernel):
 
 def main() -> int:
     d = Path(sys.argv[1])
-    ch, pa = load(d, "change"), load(d, "parent")
+    names = sys.argv[2:4] + ["change", "parent"][len(sys.argv[2:4]):]
+    ch, pa = load(d, names[0]), load(d, names[1])
+    print(f"{names[0]} [{names[1]}]")
     print("per level: ms back to back | cold | one call, change [parent]")
     for kernel in ("edge_probe", "vertex_probe"):
         for key in sorted(level_rows(ch[0], kernel),
@@ -77,17 +82,33 @@ def main() -> int:
               + f" | {k['launches']} [parent "
               + str(next(x for x in pa[0]["kernels"]
                          if x["name"] == k["name"])["launches"]) + "]")
-    print("all-level edge probe (change): ms | cold | one call | plain | "
-          "bound | edge_batch ms | fp_s sector MB")
+    print("all-level edge probe: ms | cold | one call | plain | bound | "
+          "edge_batch ms | sector MB of fp_s, of all loads; change "
+          "[parent]")
     for tag in ch[0]["edge_levels"]:
         rows = [r["edge_levels"][tag] for r in ch]
-        vals = [mean([x.get(f) for x in rows])
+        prows = [r["edge_levels"][tag] for r in pa
+                 if tag in r.get("edge_levels", {})]
+        cols = [pair(rows, prows, lambda x, f=f: x.get(f))
                 for f in ("ms", "cold_ms", "one_call_ms", "plain_ms",
                           "bound_ms", "edge_batch_ms")]
-        vals.append(mean([x.get("sector_bytes") for x in rows]))
-        vals[-1] = None if vals[-1] is None else vals[-1] / 1e6
-        print(f"  {tag} ({rows[0]['entries']} entries): "
-              + " | ".join(fmt(v) for v in vals))
+        for f in ("sector_bytes", "load_sector_bytes"):
+            mb = mean([x.get(f) for x in rows])
+            cols.append(fmt(None if mb is None else mb / 1e6))
+        print(f"  {tag} ({rows[0]['entries']} entries): " + " | ".join(cols))
+    if "edge_levels_sweep" in ch[0]:
+        print("all-level edge probe over the first k entries and fewer "
+              "queries (change): ms back to back | cold")
+        for i, row in enumerate(ch[0]["edge_levels_sweep"]):
+            vals = [mean([r["edge_levels_sweep"][i][f] for r in ch])
+                    for f in ("ms", "cold_ms")]
+            print(f"  {row['tag']} (q={row['q']}): "
+                  + " | ".join(fmt(v) for v in vals))
+    if "l2_read" in ch[0]:
+        print("read rates (change): TB/s")
+        for tag in ch[0]["l2_read"]:
+            print(f"  {tag}: "
+                  + fmt(mean([r["l2_read"][tag]["tb_s"] for r in ch])))
     print("wide buckets, vertex probe b=1024 (change): ms back to back")
     for tag in ch[0]["wide_buckets"]:
         print(f"  {tag}: "
