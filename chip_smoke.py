@@ -34,19 +34,33 @@ kernels/csrc`` (into ``build/kernels/``), then:
    staging chunk), exact against its plain version;
 3. ingests a 1.1M-edge prefix twice, once through the kernels and once
    through the plain versions (``kernels=False``), and requires equal
-   pools, overflow blocks and answers.
+   pools, overflow blocks and answers;
+4. runs the windowed deployment: the whole stream into a sketch with a
+   2^27 window (a quarter of its time span), queries inside the retained
+   window, and a fresh sketch on the retained suffix that must hold the
+   same leaf index, non-empty pools and answers (``windowed``); the same
+   run through ``StreamPipeline.run_resumable``, stopped by a
+   ``PreemptionGuard`` after batch 17 and resumed from its snapshot by a
+   new sketch, which must equal the uninterrupted one bit for bit
+   (``resume``); the 1.1M prefix under a byte budget of half its
+   unbounded space, checked after every insert (``budget``); and a d1 =
+   64, b = 3 sketch, whose leaves do not fit a block's shared memory, so
+   K1 runs its global-memory form: one drain held against the plain
+   version and timed, then 2^20 edges answered (``large leaf``).
 
 To compare two commits, run this same script from a checkout of each:
 it times whichever kernels the checkout it sits in holds.
 
 The counts of kernel launches are set to 0 just before the main path and
-read just after it.  The line before the last is the card's name and
+read just after it, and likewise around the windowed and the large-leaf
+sketch runs.  The line before the last is the card's name and
 power limit, the one before it a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, without a GPU, outside a checkout, or if any phase fails.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -68,6 +82,12 @@ B2B_SLEEP_MS = 8.0           # device sleep that covers a group's enqueue
 L2_FLUSH_BYTES = 256 << 20   # read before each cold launch (L2: 50 MB)
 CHAIN_ITERS = 1 << 20        # round trips of the chain microbenchmark
 HOT_VERTICES = 64            # the shared-lines phase: queries on <= 64
+WINDOW = 1 << 27             # windowed phase: a quarter of the time span
+RESUME_EVERY = 8             # resume phase: a snapshot every 8 batches,
+RESUME_KEEP = 2              # the newest 2 kept, and a stop after
+RESUME_STOP_AFTER = 17       # batch 17
+LARGE_D1, LARGE_B = 64, 3    # large-leaf phase: 240 KB of slots per leaf
+LARGE_EDGES = 1 << 20
 DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
@@ -191,6 +211,8 @@ def cold_ms(torch, fn, prepare=None, n: int = B2B_N, groups: int = 2):
 def reset_counts(kmods) -> None:
     for fn in kmods:
         fn.launches = 0
+        if hasattr(fn, "global_launches"):     # K1/K2's global-memory form
+            fn.global_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -244,18 +266,65 @@ def ranges_of(t: np.ndarray):
             "1/256": (mid - span // 512, mid + span // 512)}
 
 
+def answer_all(sk, api, queries, ranges):
+    """Edge, out and in queries at every range: ``{(kind, range):
+    (estimates, stats)}`` and the seconds spent in ``query``."""
+    _, _, EdgeQuery, VertexQuery = api
+    e_src, e_dst, v_out, v_in = queries
+    results, secs = {}, 0.0
+    for name, (ts, te) in ranges.items():
+        for kind, q in (("edge", EdgeQuery(e_src, e_dst, ts, te)),
+                        ("out", VertexQuery(v_out, ts, te, "out")),
+                        ("in", VertexQuery(v_in, ts, te, "in"))):
+            t0 = time.perf_counter()
+            res = sk.query([q])
+            secs += time.perf_counter() - t0
+            results[(kind, name)] = (np.asarray(res.values[0]), res.stats)
+    return results, secs
+
+
 def ingest(sk, stream, n):
     for lo in range(0, n, BATCH):
         sk.insert(*(a[lo:min(lo + BATCH, n)] for a in stream))
     sk.flush()
 
 
+def time_cascade(sk) -> dict:
+    """Wall seconds of the aggregation cascade per parent level, summed
+    over the run (each step ends on a device-to-host copy of its spill
+    mask, so the host clock covers its device work)."""
+    secs: dict[int, float] = {}
+    build = sk._build_parents_fused
+
+    def timed(level, u0, m):
+        t0 = time.perf_counter()
+        build(level, u0, m)
+        secs[level + 1] = secs.get(level + 1, 0.0) + time.perf_counter() - t0
+
+    sk._build_parents_fused = timed
+    return secs
+
+
+def capture_first_drain(sk, captured: dict) -> None:
+    """Keep a copy of the K1 inputs of the sketch's first drain (fresh
+    leaves, as the drain has them) in ``captured``."""
+    insert = sk._pipeline._insert
+
+    def capture(nodes, *items, r):
+        if "items" not in captured:
+            captured["items"] = [x.clone() for x in items]
+            captured["shape"] = tuple(nodes.fp_s.shape)
+            captured["r"] = r
+        return insert(nodes, *items, r=r)
+
+    sk._pipeline._insert = capture
+
+
 def main_path(torch, api, stream, queries, counted):
     """The measured run: counts 0 -> ingest -> queries -> counts read."""
-    HiggsSketch, HiggsParams, EdgeQuery, VertexQuery = api
+    HiggsSketch, HiggsParams, _, _ = api
     sk = HiggsSketch(HiggsParams())                 # default device: CUDA
-    captured = {"edge_batches": []}
-    insert = sk._pipeline._insert
+    captured = {"edge_batches": [], "cascade_s": time_cascade(sk)}
     probe_levels = sk.planner._edge_probe_levels
 
     def capture_edge_batch(entries, *leaf, params):
@@ -263,15 +332,7 @@ def main_path(torch, api, stream, queries, counted):
         return probe_levels(entries, *leaf, params=params)
 
     sk.planner._edge_probe_levels = capture_edge_batch
-
-    def capture_first_drain(nodes, *items, r):
-        if "items" not in captured:               # inputs of one real drain
-            captured["items"] = [x.clone() for x in items]
-            captured["shape"] = tuple(nodes.fp_s.shape)
-            captured["r"] = r
-        return insert(nodes, *items, r=r)
-
-    sk._pipeline._insert = capture_first_drain
+    capture_first_drain(sk, captured)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counted)
@@ -279,24 +340,19 @@ def main_path(torch, api, stream, queries, counted):
     ingest(sk, stream, N_EDGES)
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
-    e_src, e_dst, v_out, v_in = queries
-    results, q_s = {}, 0.0
-    for name, (ts, te) in ranges_of(stream[3]).items():
-        for kind, q in (("edge", EdgeQuery(e_src, e_dst, ts, te)),
-                        ("out", VertexQuery(v_out, ts, te, "out")),
-                        ("in", VertexQuery(v_in, ts, te, "in"))):
-            t1 = time.perf_counter()
-            res = sk.query([q])
-            q_s += time.perf_counter() - t1
-            results[(kind, name)] = (np.asarray(res.values[0]), res.stats)
+    results, q_s = answer_all(sk, api, queries, ranges_of(stream[3]))
     launches = {fn.__name__: fn.launches for fn in counted}
     peak = torch.cuda.max_memory_allocated()
     sk.planner._edge_probe_levels = probe_levels
     return sk, captured, results, launches, ingest_s, q_s, peak
 
 
-def check_answers(stream, queries, results):
+def check_answers(stream, queries, results, ranges=None):
+    """Every estimate >= the exact answer over ``stream`` (HIGGS's
+    one-sided error) at ``ranges`` (default: the stream's own three);
+    returns the ARE per (kind, range)."""
     src, dst, w, t = stream
+    ranges = ranges or ranges_of(t)
     u64 = np.uint64
     exact = {
         "edge": ExactSums((src.astype(u64) << u64(32)) | dst, t, w),
@@ -308,9 +364,9 @@ def check_answers(stream, queries, results):
              "out": v_out.astype(u64), "in": v_in.astype(u64)}
     are = {}
     for (kind, name), (est, _) in results.items():
-        ts, te = ranges_of(t)[name]
+        ts, te = ranges[name]
         ex = exact[kind](qkeys[kind], ts, te)
-        require(est.shape == (Q,) and np.isfinite(est).all(),
+        require(est.shape == qkeys[kind].shape and np.isfinite(est).all(),
                 f"{kind}/{name}: bad estimate array")
         low = np.nonzero(est < ex)[0]
         require(len(low) == 0, f"{kind}/{name}: {len(low)} estimates below "
@@ -912,8 +968,390 @@ def prefix_phase(torch, api, stream, queries):
         require(np.array_equal(x, y), "prefix: answers differ")
     print(f"phase prefix: {PREFIX} edges, kernels {secs[0]:.2f} s vs plain "
           f"{secs[1]:.2f} s: pools, overflow blocks and answers equal "
-          f"({a.n_levels} levels, {a.ob.total_entries()} overflow entries)",
+          f"({a.n_levels} levels, {a.ob.total_entries()} overflow entries, "
+          f"space_bytes {a.space_bytes():.0f})", flush=True)
+    return a.space_bytes()
+
+# ---------------------------------------------------------------------------
+# retention, snapshots and the resumable pipeline (windowed deployments)
+# ---------------------------------------------------------------------------
+
+def state_equal(a, b, what: str) -> None:
+    """Every array of two sketches' ``state_dict()`` equal, bit for bit."""
+    xa, _ = a.state_dict()
+    xb, _ = b.state_dict()
+    require(sorted(xa) == sorted(xb), f"{what}: state_dict keys differ")
+    for k in xa:
+        require(xa[k].dtype == xb[k].dtype and np.array_equal(
+            xa[k].view(np.uint8), xb[k].view(np.uint8)),
+            f"{what}: state_dict array {k} differs")
+
+
+def nonempty_pools_equal(win, fresh, what: str) -> None:
+    """The levels where the fresh suffix build holds nodes equal the
+    windowed sketch's bit for bit; the windowed sketch holds none above
+    them (it may keep a level whose nodes were all evicted)."""
+    for lvl, pw in enumerate(win.pools, start=1):
+        pf = fresh.pools[lvl - 1] if lvl <= len(fresh.pools) else None
+        if pf is None or pf.n == 0:
+            require(pw.n == 0, f"{what}: level {lvl} holds {pw.n} nodes, "
+                    f"the fresh build none")
+            continue
+        require(pw.n == pf.n, f"{what}: level {lvl} holds {pw.n} nodes "
+                f"against {pf.n}")
+        xw, xf = pw.export(), pf.export()
+        for f in xw:
+            require(np.array_equal(xw[f].view(np.uint32),
+                                   xf[f].view(np.uint32)),
+                    f"{what}: level {lvl} {f} differs")
+
+
+def fmt_secs(secs: dict) -> dict:
+    return {k: round(v, 3) for k, v in sorted(secs.items())}
+
+
+def pools_line(sk) -> str:
+    return ", ".join(f"L{i}: {p.n} (base {p.base})"
+                     for i, p in enumerate(sk.pools, start=1))
+
+
+def windowed_phase(torch, api, stream, queries, counted):
+    """The windowed deployment on the full stream: counts 0 -> ingest
+    with a 2^27 window -> queries inside the retained window -> counts
+    read; then a fresh sketch on the retained suffix must equal it."""
+    HiggsSketch, HiggsParams, _, _ = api
+    params = HiggsParams(retention=f"window:{WINDOW}")
+    sk = HiggsSketch(params)
+    cascade_s = time_cascade(sk)
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counted)
+    t0 = time.perf_counter()
+    ingest(sk, stream, N_EDGES)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    peak_ingest = torch.cuda.max_memory_allocated()
+    lo, hi = int(sk.leaf_starts[0]), int(stream[3][-1])
+    ranges = ranges_of(np.array([lo, hi]))
+    results, q_s = answer_all(sk, api, queries, ranges)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated() - base_bytes
+    stats = sk.retention_stats()
+    print(f"windowed: ingest {N_EDGES} edges in {ingest_s:.2f} s = "
+          f"{N_EDGES / ingest_s:.0f} edges/s (window {WINDOW}); "
+          f"{len(results) * Q} queries in {q_s:.2f} s; retention_stats "
+          f"{stats}", flush=True)
+    print(f"windowed: nodes per level {pools_line(sk)}, "
+          f"{sk.ob.total_entries()} overflow entries, space_bytes "
+          f"{sk.space_bytes():.0f}, max_memory_allocated {peak} ({peak_ingest} "
+          f"by the end of ingest; {base_bytes} held before the phase, so "
+          f"{peak - base_bytes} above it at the peak, {held} held by the "
+          f"sketch after it); aggregation seconds per "
+          f"parent level {fmt_secs(cascade_s)}; launches {launches}",
           flush=True)
+    for fn in counted:
+        if fn.__name__ != "leaf_insert":
+            require(launches[fn.__name__] > 0,
+                    f"{fn.__name__} was not launched in the windowed phase")
+    require(stats["segments_evicted"] > 0, "windowed: nothing evicted")
+
+    drop = sk.segments.items_dropped
+    suffix = tuple(a[drop:] for a in stream)
+    fresh = HiggsSketch(params)
+    t1 = time.perf_counter()
+    ingest(fresh, suffix, len(suffix[0]))
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t1
+    require(np.array_equal(sk.leaf_starts, fresh.leaf_starts)
+            and np.array_equal(sk.leaf_ends, fresh.leaf_ends),
+            "windowed: leaf index differs from the fresh suffix build")
+    nonempty_pools_equal(sk, fresh, "windowed vs fresh suffix")
+    fresh_res, _ = answer_all(fresh, api, queries, ranges)
+    for key, (est, _) in results.items():
+        require(np.array_equal(est, fresh_res[key][0]),
+                f"windowed: {key} answers differ from the fresh suffix build")
+    are = check_answers(suffix, queries, results, ranges)
+    print(f"windowed: fresh build on the retained suffix ({len(suffix[0])} "
+          f"edges from item {drop}, {fresh_s:.2f} s) has the same leaf "
+          f"index, non-empty pools and answers; no estimate below the exact "
+          f"count over the retained items; ARE {are}", flush=True)
+    del fresh
+    out = dict(ingest_s=ingest_s, edges_per_s=N_EDGES / ingest_s,
+               query_s=q_s, launches=launches, peak_bytes=peak,
+               peak_ingest_bytes=peak_ingest, base_bytes=base_bytes,
+               held_bytes=held, cascade_s=cascade_s,
+               retention_stats=stats, ranges=ranges,
+               pools=[(p.n, p.base) for p in sk.pools],
+               overflow_entries=sk.ob.total_entries(),
+               space_bytes=sk.space_bytes(), items_dropped=drop,
+               fresh_suffix_s=fresh_s, are=are)
+    return sk, results, out
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def resume_phase(torch, api, stream, queries, win, win_results, ranges):
+    """``run_resumable`` into a directory under ``chiprun_out/`` with the
+    windowed policy, a snapshot every 8 batches (2 kept); a
+    ``PreemptionGuard`` stops it after batch 17 (a final snapshot), and a
+    new sketch and pipeline resume from there and finish.  The result
+    must equal the uninterrupted windowed sketch bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.runtime.fault import (PreemptionGuard,
+                                           run_with_preemption)
+    from repro_torch.stream.pipeline import StreamPipeline
+
+    HiggsSketch, HiggsParams, _, _ = api
+    params = HiggsParams(retention=f"window:{WINDOW}")
+    OUT.mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="resume_", dir=OUT))
+    timing = {"save": [], "restore": []}
+
+    def timed(pipe):
+        for name in ("snapshot", "restore_snapshot"):
+            fn = getattr(pipe, name)
+
+            def wrapper(*a, fn=fn, key=("save" if name == "snapshot"
+                                        else "restore"), **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                timing[key].append(time.perf_counter() - t0)
+                return out
+            setattr(pipe, name, wrapper)
+        return pipe
+
+    try:
+        guard = PreemptionGuard(install=False)
+        batches = [0]
+
+        def progress(cursor):
+            batches[0] += 1
+            if batches[0] == RESUME_STOP_AFTER:
+                guard.request_stop()
+
+        pipe = timed(StreamPipeline(*stream, batch=BATCH))
+        t0 = time.perf_counter()
+        run_with_preemption(pipe, HiggsSketch(params), str(ckpt),
+                            every=RESUME_EVERY, keep=RESUME_KEEP,
+                            guard=guard, progress=progress)
+        first_s = time.perf_counter() - t0
+        require(pipe.cursor < N_EDGES, "resume: the run was not stopped")
+        stopped_at, bytes_at_stop = pipe.cursor, dir_bytes(ckpt)
+        pipe2 = timed(StreamPipeline(*stream, batch=BATCH))
+        sk2 = HiggsSketch(params)
+        t1 = time.perf_counter()
+        pipe2.run_resumable(sk2, str(ckpt), every=RESUME_EVERY,
+                            keep=RESUME_KEEP)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t1
+        require(pipe2.cursor == N_EDGES, "resume: the run did not finish")
+        final_bytes = dir_bytes(ckpt)
+        kept = sorted(p.name for p in ckpt.iterdir())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    state_equal(win, sk2, "resumed vs uninterrupted windowed sketch")
+    parts = snapshot_parts(torch, api, sk2)
+    res2, _ = answer_all(sk2, api, queries, ranges)
+    for key, (est, _) in win_results.items():
+        require(np.array_equal(est, res2[key][0]),
+                f"resume: {key} answers differ from the uninterrupted run")
+    n_snap = len(timing["save"])
+    print(f"resume: stopped after batch {RESUME_STOP_AFTER} at item "
+          f"{stopped_at} ({first_s:.2f} s, {bytes_at_stop} bytes on disk), "
+          f"resumed and finished in {second_s:.2f} s; {n_snap} snapshots, "
+          f"save {sum(timing['save']):.2f} s in all (each "
+          f"{[round(x, 3) for x in timing['save']]}), restore "
+          f"{sum(timing['restore']):.2f} s; {final_bytes} bytes on disk at "
+          f"the end ({kept}); state_dict and answers equal the "
+          f"uninterrupted windowed sketch; one snapshot in parts (s): "
+          f"{parts}", flush=True)
+    del sk2
+    return dict(parts=parts, stopped_at=stopped_at, first_s=first_s,
+                second_s=second_s,
+                snapshots=n_snap, save_s=timing["save"],
+                restore_s=timing["restore"], bytes_at_stop=bytes_at_stop,
+                final_bytes=final_bytes, kept=kept)
+
+
+def snapshot_parts(torch, api, sk) -> dict:
+    """Where one snapshot's time goes: ``state_dict`` (the pools' one
+    device-to-host copy per field, the overflow columns), writing the
+    npz and manifest, reading them back, and ``load_state``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.store import restore_arrays, save_checkpoint
+
+    HiggsSketch, HiggsParams, _, _ = api
+    d = Path(tempfile.mkdtemp(prefix="parts_", dir=OUT))
+    try:
+        t0 = time.perf_counter()
+        arrays, meta = sk.state_dict()
+        t1 = time.perf_counter()
+        save_checkpoint(str(d), 0, arrays, {"summary": "higgs",
+                                            "state": meta})
+        t2 = time.perf_counter()
+        got, meta2 = restore_arrays(str(d), 0)
+        t3 = time.perf_counter()
+        HiggsSketch(HiggsParams()).load_state(got, meta2["state"])
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        nbytes = dir_bytes(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    n_ob = sum(1 for k in arrays if k.startswith("ob/"))
+    pool_bytes = sum(a.nbytes for k, a in arrays.items()
+                     if k.startswith("pool"))
+    return dict(state_dict=round(t1 - t0, 3), write=round(t2 - t1, 3),
+                read=round(t3 - t2, 3), load_state=round(t4 - t3, 3),
+                bytes=nbytes, arrays=len(arrays), ob_arrays=n_ob,
+                pool_bytes=pool_bytes)
+
+
+def plan_mass(sk, ts: int, te: int) -> float:
+    """The mass the sketch holds for [ts, te]: every matrix weight and
+    overflow entry of the nodes its boundary search returns (float64)."""
+    plan, filtered = sk.boundary_search(ts, te)
+    require(not filtered, "budget: a full-range plan filtered a leaf")
+    total = 0.0
+    for level, ids in plan.items():
+        pool = sk.pools[level - 1]
+        slots = pool.slots_of(ids)
+        w = pool.device_view().w
+        total += float(w[slots.tolist()].double().sum())
+        for u in ids:
+            rec = sk.ob.get(level, int(u))
+            if rec is not None:
+                total += float(rec["w"].sum())
+    return total
+
+
+def budget_phase(torch, api, stream, queries, budget):
+    """The 1.1M prefix under a byte budget (half the unbounded prefix
+    sketch's space): after every insert the space stays within it (or
+    only the active region is left), full-range answers are >= exact, and
+    the mass the sketch holds is that of the items it still holds."""
+    HiggsSketch, HiggsParams, _, _ = api
+    sk = HiggsSketch(HiggsParams(retention=f"budget:{budget}"))
+    q = tuple(x[:1024] for x in queries)
+    steps = []
+    t0 = time.perf_counter()
+    for lo in range(0, PREFIX, BATCH):
+        hi = min(lo + BATCH, PREFIX)
+        sk.insert(*(a[lo:hi] for a in stream))
+        st = sk.segments
+        space = sk.space_bytes()
+        require(space <= budget or not st.records,
+                f"budget: {space} bytes over the budget {budget} with "
+                f"{len(st.records)} segments retained")
+        # what the sketch holds: the closed leaves' items, less the
+        # evicted segments' (the oldest)
+        closed = sk.n_items - sk._buf_len
+        held_items = tuple(a[st.items_evicted:closed] for a in stream)
+        full = {"full": (int(stream[3][0]), int(stream[3][hi - 1]))}
+        res, _ = answer_all(sk, api, q, full)
+        check_answers(held_items, q, res, full)
+        held = float(held_items[2].sum(dtype=np.float64))
+        mass = plan_mass(sk, *full["full"])
+        require(abs(mass - held) <= 1e-9 * held,
+                f"budget: held mass {mass} against {held}")
+        steps.append(dict(sk.retention_stats(), items=hi, mass=mass))
+    secs = time.perf_counter() - t0
+    stats = sk.retention_stats()
+    require(stats["segments_coarse"] > 0, "budget: nothing coarsened")
+    print(f"budget: {PREFIX} edges under {budget:.0f} bytes in {secs:.2f} s "
+          f"(queries and checks included); final {stats}; nodes per level "
+          f"{pools_line(sk)}; space within the budget, full-range answers "
+          f">= exact and mass conserved after each of {len(steps)} inserts",
+          flush=True)
+    return dict(budget=budget, seconds=secs, steps=steps)
+
+
+def large_leaf_phase(torch, api, tcm, li, stream, queries, counted):
+    """d1 = 64, b = 3: a leaf's slots (240 KB) do not fit a block's
+    shared memory, so K1 runs its global-memory form.  One real drain is
+    held bit for bit against the plain version and timed; then the first
+    2^20 edges go through such a sketch (counts 0 before, read after)
+    and its answers must be >= exact."""
+    HiggsSketch, HiggsParams, _, _ = api
+    params = HiggsParams(d1=LARGE_D1, b=LARGE_B)
+    sk = HiggsSketch(params)
+    captured = {}
+    capture_first_drain(sk, captured)
+    sk.insert(*(a[:BATCH] for a in stream))
+    del sk
+    L, d, _, b = captured["shape"]
+    r, items = captured["r"], captured["items"]
+    n = items[0].shape[1]
+    dev = items[0].device
+
+    def fresh():
+        return tcm.make_nodes(L, d, b, dev)
+
+    g0 = li.leaf_insert_batched.global_launches
+    kn, ks = li.leaf_insert_batched(fresh(), *items, r=r)
+    require(li.leaf_insert_batched.global_launches == g0 + 1,
+            "large leaf: K1 did not take its global-memory form")
+    # the plain version takes seconds here: its one timed call is this one
+    box = {"nodes": fresh()}
+    plain_ms = one_call_ms(torch, lambda: box.update(
+        plain=li.leaf_insert_batched_plain(box["nodes"], *items, r=r)), 1)
+    pn, ps = box["plain"]
+    for f, a, c in zip(kn._fields, kn, pn):
+        require(torch.equal(a, c), f"large leaf: field {f} differs from the "
+                f"plain version")
+    require(torch.equal(ks, ps), "large leaf: spill mask differs")
+    err = float((kn.w - pn.w).abs().max())
+
+    def setup():
+        box["nodes"] = fresh()
+
+    def launch(nodes):
+        li.leaf_insert_batched(nodes, *items, r=r)
+
+    ms, covered = b2b_ms(torch, launch, lambda i: (fresh(),))
+    cold, cov2 = cold_ms(torch, launch, lambda i: (fresh(),))
+    one = one_call_ms(torch, lambda: launch(box["nodes"]), 10, setup=setup)
+    written = int((kn.fp_s != -1).sum())
+    nbytes = L * n * (4 * 4 + 1 + 2 * 4 * r + 4) + written * 20
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase leaf_insert_batched (global memory): L={L} n={n} d={d} "
+          f"b={b} r={r} bit-exact vs plain; kernel {ms:.4f} ms back to back, "
+          f"{cold:.4f} ms cold (covered={covered and cov2}), one call "
+          f"{one:.4f} ms, plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+          f"({written} slots written, {L * n} items read, at 3.35 TB/s), "
+          f"{int(ks.sum())} items spilled", flush=True)
+
+    reset_counts(counted)
+    sk2 = HiggsSketch(params)
+    t0 = time.perf_counter()
+    ingest(sk2, stream, LARGE_EDGES)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    sub = tuple(a[:LARGE_EDGES] for a in stream)
+    q = tuple(x[:1024] for x in queries)
+    res, _ = answer_all(sk2, api, q, ranges_of(sub[3]))
+    launches = {fn.__name__: fn.launches for fn in counted}
+    launches["leaf_insert_batched_global"] = \
+        li.leaf_insert_batched.global_launches
+    require(launches["leaf_insert_batched_global"] > 0,
+            "large leaf: the global-memory form was not launched")
+    are = check_answers(sub, q, res)
+    print(f"large leaf: {LARGE_EDGES} edges into a d1={d} b={b} sketch in "
+          f"{ingest_s:.2f} s, nodes per level {pools_line(sk2)}; launches "
+          f"{launches}; no estimate below exact", flush=True)
+    return dict(L=L, n=n, d=d, b=b, r=r, ms=ms, cold_ms=cold,
+                one_call_ms=one, covered=covered and cov2,
+                plain_ms=plain_ms, bound_ms=bound, bound_bytes=nbytes,
+                slots_written=written, max_abs_err=err,
+                spilled=int(ks.sum()), launches=launches,
+                ingest_s=ingest_s, are=are)
 
 
 def host_top(prof, k: int):
@@ -1027,7 +1465,8 @@ def run(torch) -> dict:
           f"{[p.n for p in sk.pools]}, {sk.ob.total_entries()} overflow "
           f"entries, space_bytes {sk.space_bytes():.0f}, "
           f"max_memory_allocated {peak}", flush=True)
-    print(f"main path launches: {launches}", flush=True)
+    print(f"main path launches: {launches}; aggregation seconds per "
+          f"parent level {fmt_secs(captured['cascade_s'])}", flush=True)
     for fn in (li.leaf_insert_batched, pr.edge_probe, pr.vertex_probe):
         require(launches[fn.__name__] > 0,
                 f"{fn.__name__} was not launched on the main path")
@@ -1052,9 +1491,25 @@ def run(torch) -> dict:
               f"{tot['one_call_ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, "
               f"bound {tot['bound_ms']:.4f} ms", flush=True)
     prof = profile_phase(torch, api, stream, sk, queries)
-    del sk
+    main_cascade_s = captured["cascade_s"]
+    # the captured drain and edge batches hold the main path's slabs, and
+    # a sketch and its planner refer to each other: only the cycle
+    # collector frees them
+    del sk, captured
+    gc.collect()
     torch.cuda.empty_cache()
-    prefix_phase(torch, api, stream, queries)
+    prefix_space = prefix_phase(torch, api, stream, queries)
+    gc.collect()
+    torch.cuda.empty_cache()
+    win, win_results, windowed = windowed_phase(torch, api, stream, queries,
+                                                counted)
+    resume = resume_phase(torch, api, stream, queries, win, win_results,
+                          windowed["ranges"])
+    del win
+    gc.collect()
+    torch.cuda.empty_cache()
+    budget = budget_phase(torch, api, stream, queries, prefix_space / 2)
+    large = large_leaf_phase(torch, api, tcm, li, stream, queries, counted)
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [
@@ -1075,12 +1530,26 @@ def run(torch) -> dict:
                     cold_ms=m["cold_ms"], one_call_ms=m["one_call_ms"],
                     chain_bound_ms=m.get("chain_bound_ms"))
                for name, f, rep, m in rows]
+    # K1's global-memory form: its launches are those of the large-leaf
+    # sketch run (the main path's leaves fit shared memory)
+    kernels.append(dict(
+        name="leaf_insert_batched_global", route="cuda",
+        source=src + "leaf_insert.cu",
+        replaces="src/repro/kernels/leaf_insert.py:176",
+        launches=large["launches"]["leaf_insert_batched_global"],
+        max_abs_err=large["max_abs_err"], ms=large["ms"],
+        plain_ms=large["plain_ms"], bound_ms=large["bound_ms"],
+        bound_by="bytes", library_ms=None, cold_ms=large["cold_ms"],
+        one_call_ms=large["one_call_ms"], chain_bound_ms=None))
     report = dict(kernels=kernels, k1_k2=k12, chain=chain, probes=k34,
                   probe_levels=probe_levels, shared_lines=shared,
                   shared_lines_levels=shared_levels,
                   edge_levels=edge_levels, edge_levels_sweep=k3_sweep,
                   l2_read=l2, wide_buckets=wide, profile=prof,
                   answers=are, query_stats=stats, ingest_s=ingest_s,
+                  main_cascade_s=main_cascade_s,
+                  windowed=windowed, resume=resume, budget=budget,
+                  large_leaf=large, prefix_space_bytes=prefix_space,
                   query_s=q_s, peak_bytes=peak,
                   total_s=time.perf_counter() - t0)
     write_report(report)

@@ -11,18 +11,23 @@ bottom-up whenever theta nodes of a level complete.
 
 This port takes the reference's accelerator path: the Alg.-1 leaf insert
 of ``insert_backend="pallas"`` with device-resident pools
-(``pool_storage="device"``), which it reproduces bit for bit.  Retention
-policies, snapshots, the other insert engines and the read-epoch surface
-are not ported yet (ROADMAP.md, module items 7-12).
+(``pool_storage="device"``), which it reproduces bit for bit, retention
+policies (the segment lifecycle) and snapshots included.  The other
+insert engines and the read-epoch surface are not ported yet (ROADMAP.md,
+module items 10-12).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.api.planner import QueryPlanner
+from repro_torch.api.protocol import SnapshotMixin
 from repro_torch.api.queries import QueryBatch, QueryResult
 from repro_torch.core import hashing
+from repro_torch.core.cmatrix import NodeState
 from repro_torch.core.params import HiggsParams
 from repro_torch.core.pool import _LevelPool
 from repro_torch.core.segments import SegmentStore
@@ -40,6 +45,19 @@ def resolve_device(device) -> torch.device:
                                "of the kernels on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def port_params(config: dict) -> HiggsParams:
+    """The params of a saved ``config`` (a reference's or the port's) as
+    the port runs them: the reference's pallas engine on device pools.
+    A port's own config comes back unchanged."""
+    cfg = dict(config)
+    if cfg.get("insert_backend") not in ("auto", "pallas"):
+        cfg["insert_backend"] = "pallas"
+    if cfg.get("pool_storage") not in ("auto", "device"):
+        cfg["pool_storage"] = "device"
+    cfg.update(batched_ingest=True, interpret=None)
+    return HiggsParams(**cfg)
 
 
 class _LeafIndex:
@@ -69,6 +87,17 @@ class _LeafIndex:
         self._starts[self.n:self.n + m] = ts0s
         self._ends[self.n:self.n + m] = ts1s
         self.n += m
+
+    def drop_prefix(self, k: int) -> None:
+        """Drop the ``k`` oldest interval keys (evicted or coarsened
+        leaves); the retained keys slide to the front in place."""
+        if k <= 0:
+            return
+        if k > self.n:
+            raise ValueError(f"cannot drop {k} of {self.n} leaf keys")
+        self._starts[: self.n - k] = self._starts[k: self.n].copy()
+        self._ends[: self.n - k] = self._ends[k: self.n].copy()
+        self.n -= k
 
     def load(self, starts: np.ndarray, ends: np.ndarray) -> None:
         """Overwrite with snapshot keys (fresh doubling storage)."""
@@ -132,6 +161,14 @@ class _OverflowStore:
         m = self._len[key]
         return {k: v[:m] for k, v in self._cols[key].items()}
 
+    def drop(self, level: int, node: int) -> int:
+        """Discard the entries of one (level, node) key (segment eviction
+        pruning); returns the number of entries freed."""
+        key = (level, node)
+        freed = self._len.pop(key, 0)
+        self._cols.pop(key, None)
+        return freed
+
     @property
     def data(self) -> dict:
         """Trimmed {(level, node): columns} view (accounting/tests)."""
@@ -148,23 +185,25 @@ class _OverflowStore:
             self.add(level, node, **cols)
 
 
-class HiggsSketch:
+class HiggsSketch(SnapshotMixin):
     """The HIGGS structure with its matrices on a torch device.
 
     ``device=None`` means CUDA and raises when no card is present; pass
     ``device="cpu"`` to run on the CPU, where every kernel wrapper takes
     its plain torch version.  ``kernels=False`` runs the plain versions
-    on any device (the on-card check of the kernels).
+    on any device (the on-card check of the kernels).  ``save``/``restore``
+    (from :class:`SnapshotMixin`) write and read the reference's snapshot
+    layout, so either package restores the other's snapshots.
     """
 
     name = "HIGGS"
+    snapshot_kind = "higgs"
+    # where the sketch runs, not what it holds: a restore keeps the
+    # restoring sketch's own (higgslint R3)
+    _SNAPSHOT_DERIVED = ("device", "_kernels", "_pipeline", "planner")
 
     def __init__(self, params: HiggsParams = HiggsParams(), device=None,
                  kernels: bool = True):
-        if params.retention.active:
-            raise NotImplementedError(
-                "retention policies are not ported yet (ROADMAP.md module "
-                "item 7)")
         if params.insert_backend not in ("auto", "pallas") \
                 or params.pool_storage not in ("auto", "device") \
                 or not (params.use_ob and params.batched_ingest):
@@ -173,6 +212,7 @@ class HiggsSketch:
                 "device pools; other engines are ROADMAP.md module item 10")
         self.params = params
         self.device = resolve_device(device)
+        self._kernels = kernels
         r = params.r if params.use_mmb else 1
         if kernels and self.device.type == "cuda" and r > VERTEX_MAX_R:
             raise ValueError(
@@ -186,7 +226,7 @@ class HiggsSketch:
         self._buf: list[np.ndarray] = []           # pending raw items
         self._buf_len = 0
         self.n_items = 0
-        self.segments = SegmentStore(params)       # leaf bookkeeping
+        self.segments = SegmentStore(params)       # temporal lifecycle
         self._t_last = 0                           # newest closed-leaf end
         self._version = 0                          # bumped on tree mutation
         self._pipeline = DrainPipeline(params, self.device, kernels)
@@ -212,6 +252,79 @@ class HiggsSketch:
         return self.planner.execute(queries)
 
     # ------------------------------------------------------------------
+    # persistence (the reference's snapshot layout, key for key)
+    # ------------------------------------------------------------------
+
+    def state_dict(self):
+        """Full sketch state as flat host arrays + JSON-able metadata, in
+        the reference's layout and dtypes (``uint32`` pool fields, the
+        port's ``int32`` bit patterns reinterpreted).
+
+        This is the port's device-to-host barrier for the pools: one copy
+        per slab field, trimmed to the retained nodes.
+        """
+        arrays: dict[str, np.ndarray] = {
+            "leaf_starts": self._leaves.starts.copy(),
+            "leaf_ends": self._leaves.ends.copy(),
+            "buf": (np.concatenate(self._buf, axis=1) if self._buf
+                    else np.zeros((4, 0), np.uint32)),
+        }
+        pools_meta = []
+        for lvl, pool in enumerate(self.pools, start=1):
+            pools_meta.append({"n": int(pool.n), "cap": int(pool.cap),
+                               "d": int(pool.d), "b": int(pool.b),
+                               "base": int(pool.base)})
+            for name, a in pool.export().items():
+                arrays[f"pool{lvl}/{name}"] = a
+        ob_keys = []
+        for (level, node), cols in self.ob.data.items():
+            ob_keys.append([int(level), int(node)])
+            for field, col in cols.items():
+                arrays[f"ob/{level}.{node}/{field}"] = col.copy()
+        meta = {
+            "config": dataclasses.asdict(self.params),
+            "n_items": int(self.n_items),
+            "buf_len": int(self._buf_len),
+            "version": int(self._version),
+            "probe_counter": 0,            # the port keeps no such counter
+            "pools": pools_meta,
+            "ob_keys": ob_keys,
+            "t_last": int(self._t_last),
+            "segments": self.segments.meta(),
+        }
+        return arrays, meta
+
+    def load_state(self, arrays: dict, meta: dict) -> None:
+        """Exact inverse of :meth:`state_dict` (and of the reference's):
+        reconfigure from the saved params, as the port runs them, and
+        overwrite all state.  The sketch keeps its device and its
+        ``kernels`` flag; the planner's plan cache is re-seeded."""
+        self.__init__(port_params(meta["config"]), device=self.device,
+                      kernels=self._kernels)
+        for lvl, pm in enumerate(meta["pools"], start=1):
+            if lvl > len(self.pools):
+                self.pools.append(_LevelPool(int(pm["d"]), int(pm["b"]),
+                                             self.device))
+            self.pools[lvl - 1].load(
+                {name: arrays[f"pool{lvl}/{name}"]
+                 for name in NodeState._fields},
+                int(pm["n"]), cap=int(pm["cap"]),
+                base=int(pm.get("base", 0)))
+        self._leaves.load(arrays["leaf_starts"], arrays["leaf_ends"])
+        self.ob.load({(int(lvl), int(node)):
+                      {f: arrays[f"ob/{lvl}.{node}/{f}"]
+                       for f in _OverflowStore.FIELDS}
+                      for lvl, node in meta["ob_keys"]})
+        buf = np.ascontiguousarray(arrays["buf"], np.uint32)
+        self._buf = [buf] if buf.shape[1] else []
+        self._buf_len = int(meta["buf_len"])
+        self.n_items = int(meta["n_items"])
+        self._t_last = int(meta.get("t_last", 0))
+        self.segments.load(meta.get("segments"))
+        self._version = int(meta["version"])
+        self.planner.invalidate()
+
+    # ------------------------------------------------------------------
     # insertion
     # ------------------------------------------------------------------
 
@@ -233,6 +346,9 @@ class HiggsSketch:
     def flush(self) -> None:
         """Close the current partial leaf (end of stream / snapshot)."""
         self._drain(final=True)
+        if self.segments.active:
+            self._lifecycle()          # idempotent; a no-op drain must
+            #                            still settle expired segments
 
     def _drain(self, final: bool) -> None:
         """Split the pending buffer into every complete leaf at once.
@@ -278,8 +394,11 @@ class HiggsSketch:
             self._buf_len = int(rest.shape[1])
         else:
             self._buf = [buf]          # keep concatenated for the next call
-        if spans:
-            self._close_leaves_fused(buf, spans)
+        if not spans:
+            return
+        self._close_leaves_fused(buf, spans)
+        if self.segments.active:
+            self._lifecycle()
 
     def _close_leaves_fused(self, buf: np.ndarray,
                             spans: list[tuple[int, int]]) -> None:
@@ -323,8 +442,13 @@ class HiggsSketch:
 
     def _maybe_aggregate(self) -> None:
         p = self.params
+        cap = self.segments.level_cap
         level = 1
         while level + 1 <= p.max_levels:       # else fingerprints exhausted
+            if cap is not None and level + 1 > cap:
+                return          # hierarchy stops at the segment roots so
+                #                 every sealed segment stays a complete,
+                #                 independently evictable subtree
             pool = self.pools[level - 1]
             parent_n = self.pools[level].total if level < len(self.pools) \
                 else 0
@@ -332,8 +456,10 @@ class HiggsSketch:
             if n_ready <= 0:
                 return
             if level >= len(self.pools):
-                self.pools.append(_LevelPool(p.d(level + 1), p.b,
-                                             self.device))
+                # the leaf closings that triggered this cascade already
+                # bumped _version this drain
+                self.pools.append(  # higgslint: disable=R5
+                    _LevelPool(p.d(level + 1), p.b, self.device))
             self._build_parents_fused(level, parent_n, n_ready)
             level += 1
 
@@ -384,6 +510,99 @@ class HiggsSketch:
         return out
 
     # ------------------------------------------------------------------
+    # temporal lifecycle: sealing, eviction, coarsening compaction
+    # ------------------------------------------------------------------
+
+    def _lifecycle(self) -> None:
+        """Seal completed segments, then enforce the retention policy.
+
+        Runs after every drain (and on flush).  Everything here is a
+        deterministic function of the closed-leaf sequence alone, never
+        of insert batching.
+        """
+        st = self.segments
+        while st.can_seal():
+            i0 = st.n_sealed * st.seg_leaves - st.fine_base_leaf
+            st.seal(int(self._leaves.starts[i0]),
+                    int(self._leaves.ends[i0 + st.seg_leaves - 1]))
+        pol = self.params.retention
+        if pol.kind == "window":
+            expire = self._t_last - pol.t_horizon
+            while st.records and st.records[0].t_end < expire:
+                self._evict_front()
+        elif pol.kind == "budget":
+            while self.space_bytes() > pol.max_bytes:
+                if st.n_coarse < len(st.records):
+                    self._coarsen_oldest_fine()
+                elif st.records:
+                    self._evict_front()     # every old segment is already
+                    #                         coarse: drop roots, oldest
+                    #                         first
+                else:
+                    break                   # only the active region is
+                    #                         left: the budget's floor
+
+    def _drop_segment_levels(self, lo_level: int, hi_level: int) -> None:
+        """Reclaim one segment's nodes (and overflow keys) at levels
+        ``lo_level..hi_level``: always the oldest retained prefix at each
+        level, which keeps pool slots contiguous.  The pools slide their
+        retained suffix on the device."""
+        st = self.segments
+        # _evict_front/_coarsen_oldest_fine (the only callers) bump
+        # _version once per reclaimed segment
+        for lvl in range(lo_level, hi_level + 1):
+            pool = self.pools[lvl - 1]
+            cnt = st.nodes_per_segment(lvl)
+            for node in range(pool.base, pool.base + cnt):
+                self.ob.drop(lvl, node)  # higgslint: disable=R5
+            pool.drop_prefix(cnt)  # higgslint: disable=R5
+
+    def _evict_front(self) -> None:
+        """Evict the oldest retained segment wholesale: its slabs at
+        every resident level, its overflow keys, and (for fine
+        segments) its slice of the leaf-interval index."""
+        st = self.segments
+        seg = st.records.pop(0)
+        if seg.coarse:
+            self._drop_segment_levels(st.root_level, st.root_level)
+            st.items_coarsened -= seg.n_items
+        else:
+            self._drop_segment_levels(1, st.root_level)
+            self._leaves.drop_prefix(st.seg_leaves)
+        st.n_evicted += 1
+        st.items_evicted += seg.n_items
+        self._version += 1                 # invalidate memoized plans
+
+    def _coarsen_oldest_fine(self) -> None:
+        """Collapse the oldest fine segment into its retained root: drop
+        its leaves and mid-level ancestors (plus their overflow and
+        interval keys), keep the level-(L+1) root and its overflow
+        entries.  The segment's time range stays answerable at segment
+        resolution through :meth:`boundary_search`."""
+        st = self.segments
+        seg = st.records[st.n_coarse]
+        self._drop_segment_levels(1, st.levels)
+        self._leaves.drop_prefix(st.seg_leaves)
+        seg.coarse = True
+        st.items_coarsened += seg.n_items
+        self._version += 1
+
+    def retention_stats(self) -> dict:
+        """Lifecycle telemetry (also surfaced by the stream pipeline's
+        retention hook)."""
+        st = self.segments
+        return {
+            "policy": self.params.retention.kind,
+            "segments_retained": len(st.records),
+            "segments_coarse": st.n_coarse,
+            "segments_evicted": st.n_evicted,
+            "items_evicted": int(st.items_evicted),
+            "items_coarsened": int(st.items_coarsened),
+            "base_leaf": int(st.fine_base_leaf),
+            "space_bytes": float(self.space_bytes()),
+        }
+
+    # ------------------------------------------------------------------
     # boundary search (paper Alg. 3) — canonical theta-ary decomposition
     # ------------------------------------------------------------------
 
@@ -393,11 +612,23 @@ class HiggsSketch:
         plan: dict level -> list of global node ids queried *without*
         time filter; filtered_leaves: global leaf ids queried *with* the
         [ts, te] filter.
+
+        The search runs over the retained window: ``base`` (the global id
+        of the first leaf still resident at leaf resolution) offsets every
+        emitted id, and alignment is checked on global positions.  Ranges
+        overlapping *coarsened* segments are also covered by those
+        segments' retained roots, unfiltered: an overestimate at segment
+        resolution, so the error stays one-sided.
         """
         if te < ts:
             return {}, []
         plan: dict[int, list[int]] = {}
-        base = self.segments.fine_base_leaf
+        seg = self.segments
+        base = seg.fine_base_leaf
+        if seg.active:
+            roots = seg.coarse_roots_overlapping(ts, te)
+            if roots:
+                plan[seg.root_level] = roots
         starts, ends = self.leaf_starts, self.leaf_ends
         n1 = len(starts)
         if n1 == 0:

@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.cmatrix import NodeState, make_nodes
+from repro_torch.core.cmatrix import EMPTY, NodeState, make_nodes
 
 
 class _LevelPool:
@@ -68,13 +68,17 @@ class _LevelPool:
 
     def drop_prefix(self, k: int) -> None:
         """Reclaim the ``k`` oldest retained slots: the retained suffix
-        slides to the front in place, capacity is kept."""
+        slides to the front in place (a ``clone`` per field, so an
+        eviction briefly holds one more retained slab), capacity is kept,
+        and the ``k`` slots it vacates get fresh-node contents again, as
+        the kernels expect past ``n``."""
         if k <= 0:
             return
         if k > self.n:
             raise ValueError(f"cannot drop {k} of {self.n} nodes")
-        for f in self.slabs:
+        for name, f in zip(NodeState._fields, self.slabs):
             f[: self.n - k] = f[k:self.n].clone()
+            f[self.n - k:self.n] = EMPTY if name in ("fp_s", "fp_d") else 0
         self.n -= k
         self.base += k
         self._dirty()
@@ -165,6 +169,20 @@ class _LevelPool:
         out = {}
         for name, f in zip(NodeState._fields, self.rows(i0, count)):
             a = f.cpu().numpy()
+            out[name] = a if name == "w" else a.view(np.uint32)
+        return out
+
+    def export(self) -> dict:
+        """Host numpy copies (reference dtypes) of the ``n`` retained
+        nodes, one copy per field: what a snapshot stores."""
+        out = {}
+        for name in NodeState._fields:
+            if self.slabs is None:
+                a = np.zeros((0, self.d, self.d, self.b),
+                             np.float32 if name == "w" else np.int32)
+            else:
+                a = getattr(self.slabs, name)[: self.n].to(
+                    "cpu", copy=True).numpy()
             out[name] = a if name == "w" else a.view(np.uint32)
         return out
 

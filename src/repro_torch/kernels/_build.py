@@ -34,7 +34,7 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # cudaError_t, the size queries a size_t
 _SIGNATURES = {
     "leaf_insert": {
-        "higgs_leaf_insert": [_P] * 13 + [_I] * 5 + [_P],
+        "higgs_leaf_insert": [_P] * 13 + [_I] * 5 + [_P, _P],
     },
     "probe": {
         "higgs_edge_probe_levels": [_P, _I] + [_P] * 7 + [_I] * 4 + [_P],

@@ -29,4 +29,24 @@ cudaError_t allow_smem(K kernel, size_t smem,
   return err;
 }
 
+// The current device's opt-in dynamic shared memory per block
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), queried once per device.
+inline cudaError_t smem_optin(size_t* out) {
+  static size_t limit[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && limit[dev]) {
+    *out = limit[dev];
+    return cudaSuccess;
+  }
+  int v = 0;
+  err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices) limit[dev] = (size_t)v;
+  *out = (size_t)v;
+  return cudaSuccess;
+}
+
 }  // namespace

@@ -47,6 +47,12 @@
 // semantics without the register pipeline: the item's buckets are walked in
 // groups of 32 (one per lane) against a structure-of-arrays matrix in
 // shared memory, one item at a time.
+//
+// A leaf whose staging does not fit the device's opt-in shared memory per
+// block (d*d*b*20 bytes; about 227 KB on this card, so d = 64 at b = 3, or
+// d = 32 at b >= 12) takes leaf_insert_global_kernel: the same walk and the
+// same priority, on the leaf's rows of the level-1 slabs themselves
+// (global memory, served by the L2), which the launch writes anyway.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -322,6 +328,80 @@ __global__ void __launch_bounds__(32) leaf_insert_any_kernel(
   }
 }
 
+// Leaves too large for shared memory: leaf_insert_any_kernel's walk on the
+// matrices in global memory.  Lane e of a tile holds item e0+e's fields
+// (passed to the warp by shuffle); the winning lane writes the slot, and
+// __syncwarp orders that write before the warp's reads for the next item.
+// The matrix pointers are neither const nor __restrict__, so every read
+// goes through the coherent load path.
+__global__ void __launch_bounds__(32) leaf_insert_global_kernel(
+    int32_t* fp_s, int32_t* fp_d, float* w_m, int32_t* t_m, int32_t* idx_m,
+    const int32_t* __restrict__ fs, const int32_t* __restrict__ fd,
+    const float* __restrict__ w, const int32_t* __restrict__ t,
+    const uint8_t* __restrict__ valid, const int32_t* __restrict__ rows,
+    const int32_t* __restrict__ cols, int32_t* __restrict__ spill, int n,
+    int d, int b, int r) {
+  const int lane = threadIdx.x;
+  const size_t leaf = blockIdx.x;
+  const size_t moff = leaf * (size_t)d * d * b;
+  int32_t* m_fps = fp_s + moff;
+  int32_t* m_fpd = fp_d + moff;
+  int32_t* m_t = t_m + moff;
+  int32_t* m_idx = idx_m + moff;
+  float* m_w = w_m + moff;
+  const int rr = r * r;
+  for (int e0 = 0; e0 < n; e0 += kTile) {
+    const int cnt = min(kTile, n - e0);
+    const size_t it0 = leaf * n + e0;
+    const size_t my_it = it0 + (lane < cnt ? lane : 0);
+    const int my_fs = fs[my_it], my_fd = fd[my_it], my_t = t[my_it];
+    const float my_w = w[my_it];
+    const int my_v = lane < cnt && valid[my_it];
+    int my_spill = 0;
+    for (int e = 0; e < cnt; ++e) {
+      const int f_s = __shfl_sync(kFull, my_fs, e);
+      const int f_d = __shfl_sync(kFull, my_fd, e);
+      const int tv = __shfl_sync(kFull, my_t, e);
+      const float wv = __shfl_sync(kFull, my_w, e);
+      if (!__shfl_sync(kFull, my_v, e)) continue;      // warp-uniform
+      const size_t it = it0 + e;
+      bool done = false;
+      for (int g = 0; g < rr && !done; g += 32) {
+        const int k = g + lane;
+        int mslot = -1, eslot = -1;
+        size_t base = 0;
+        if (k < rr) {
+          base = ((size_t)rows[it * r + k / r] * d + cols[it * r + k % r]) *
+                 b;
+          for (int s = 0; s < b; ++s) {
+            const int32_t x = m_fps[base + s];
+            if (mslot < 0 && x != kEmpty && x == f_s &&
+                m_fpd[base + s] == f_d && m_t[base + s] == tv)
+              mslot = s;
+            if (eslot < 0 && x == kEmpty) eslot = s;
+            if (mslot >= 0) break;         // a match is final in a bucket
+          }
+        }
+        const unsigned ok = __ballot_sync(kFull, mslot >= 0 || eslot >= 0);
+        done = ok != 0u;
+        if (done && lane == __ffs(ok) - 1) {
+          const size_t c = base + (mslot >= 0 ? mslot : eslot);
+          if (mslot < 0) {
+            m_fps[c] = f_s;
+            m_fpd[c] = f_d;
+            m_t[c] = tv;
+            m_idx[c] = k;
+          }
+          m_w[c] = __fadd_rn(m_w[c], wv);
+        }
+        __syncwarp();
+      }
+      if (lane == e) my_spill = !done;
+    }
+    if (lane < cnt) spill[it0 + lane] = my_spill;
+  }
+}
+
 template <int B>
 int launch(size_t smem, int L, int n, int d, int r, cudaStream_t stream,
            void* fp_s, void* fp_d, void* w_m, void* t_m, void* idx_m,
@@ -343,18 +423,36 @@ int launch(size_t smem, int L, int n, int d, int r, cudaStream_t stream,
 
 // Returns a cudaError_t (0 on success); launches on `stream`, no sync.
 // b <= 8 and r*r <= 32 take leaf_insert_kernel<b>, any other shape
-// leaf_insert_any_kernel.
+// leaf_insert_any_kernel; a leaf whose shared-memory staging exceeds the
+// device's opt-in limit takes leaf_insert_global_kernel.  *form is set to
+// the kernel launched: 0, 1 or 2 in that order.
 extern "C" int higgs_leaf_insert(
     void* fp_s, void* fp_d, void* w_m, void* t_m, void* idx_m,
     const void* fs, const void* fd, const void* w, const void* t,
     const void* valid, const void* rows, const void* cols, void* spill,
-    int L, int n, int d, int b, int r, void* stream) {
+    int L, int n, int d, int b, int r, void* stream, int* form) {
   if (L <= 0) return 0;
   if (b < 1 || r < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (b > kMaxB || r * r > 32) {
-    const size_t smem =
-        (size_t)d * d * b * 5 * 4 + (size_t)kTile * (5 + 2 * r) * 4;
+  const bool any = b > kMaxB || r * r > 32;
+  const size_t smem =
+      any ? (size_t)d * d * b * 5 * 4 + (size_t)kTile * (5 + 2 * r) * 4
+          : (size_t)d * d * b * (16 + 4);
+  size_t limit = 0;
+  const cudaError_t qerr = smem_optin(&limit);
+  if (qerr != cudaSuccess) return (int)qerr;
+  if (smem > limit) {
+    *form = 2;
+    leaf_insert_global_kernel<<<L, 32, 0, s>>>(
+        (int32_t*)fp_s, (int32_t*)fp_d, (float*)w_m, (int32_t*)t_m,
+        (int32_t*)idx_m, (const int32_t*)fs, (const int32_t*)fd,
+        (const float*)w, (const int32_t*)t, (const uint8_t*)valid,
+        (const int32_t*)rows, (const int32_t*)cols, (int32_t*)spill, n, d, b,
+        r);
+    return (int)cudaGetLastError();
+  }
+  if (any) {
+    *form = 1;
     static size_t configured[kMaxDevices] = {};
     const cudaError_t err =
         allow_smem(leaf_insert_any_kernel, smem, configured);
@@ -367,7 +465,7 @@ extern "C" int higgs_leaf_insert(
         r);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)d * d * b * (16 + 4);
+  *form = 0;
 #define HIGGS_LEAF_CASE(B)                                                 \
   case B:                                                                  \
     return launch<B>(smem, L, n, d, r, s, fp_s, fp_d, w_m, t_m, idx_m, fs, \

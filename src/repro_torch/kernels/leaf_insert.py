@@ -13,8 +13,15 @@ leaf are placed in arrival order; item e visits buckets
 bucket with a slot matching ``(fp_s, fp_d, t)`` (weight added) or, without
 a match, an EMPTY slot (claimed, ``idx = k``) takes it; an item no bucket
 takes is spilled.  The new weight of a slot is ``w_slot + w``.
+
+A leaf whose matrices do not fit the device's shared memory per block
+(``d*d*b*20`` bytes above the opt-in limit, about 227 KB on an H100) takes
+the kernel's global-memory form, which walks the slab rows in place; such
+launches also add one to the wrapper's ``global_launches``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -110,14 +117,18 @@ def _launch(nodes: NodeState, fs, fd, rows, cols, w, t, valid, r: int):
     d, b = nodes.fp_s.shape[1], nodes.fp_s.shape[3]
     spill = torch.empty((L, n), dtype=torch.int32, device=fs.device)
     lib = _build.library("leaf_insert")
+    form = ctypes.c_int(-1)
     with torch.cuda.device(fs.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.higgs_leaf_insert(
             *(x.data_ptr() for x in (*nodes, fs, fd, w, t, valid, rows,
                                      cols, spill)),
-            L, n, d, b, r, stream)
+            L, n, d, b, r, stream, ctypes.byref(form))
     _build.check(rc, "leaf_insert")
-    return spill
+    return spill, form.value == GLOBAL_FORM
+
+
+GLOBAL_FORM = 2          # the launcher's code for the global-memory kernel
 
 
 def _cuda_or_cpu(x: torch.Tensor) -> bool:
@@ -137,12 +148,14 @@ def leaf_insert_batched(nodes: NodeState, fs, fd, rows, cols, w, t, valid,
     if fs.shape[0] == 0:
         return nodes, torch.zeros(fs.shape, dtype=torch.int32,
                                   device=fs.device)
-    spill = _launch(nodes, fs, fd, rows, cols, w, t, valid, r)
+    spill, in_global = _launch(nodes, fs, fd, rows, cols, w, t, valid, r)
     leaf_insert_batched.launches += 1
+    leaf_insert_batched.global_launches += in_global
     return nodes, spill
 
 
 leaf_insert_batched.launches = 0
+leaf_insert_batched.global_launches = 0
 
 
 def leaf_insert_plain(node: NodeState, fs, fd, rows, cols, w, t, valid, *,
@@ -162,10 +175,13 @@ def leaf_insert(node: NodeState, fs, fd, rows, cols, w, t, valid, *,
     ``(node, spill (n,) int32)``."""
     if not _cuda_or_cpu(fs):
         return leaf_insert_plain(node, fs, fd, rows, cols, w, t, valid, r=r)
-    spill = _launch(NodeState(*(x[None] for x in node)), fs[None], fd[None],
-                    rows[None], cols[None], w[None], t[None], valid[None], r)
+    spill, in_global = _launch(NodeState(*(x[None] for x in node)),
+                               fs[None], fd[None], rows[None], cols[None],
+                               w[None], t[None], valid[None], r)
     leaf_insert.launches += 1
+    leaf_insert.global_launches += in_global
     return node, spill[0]
 
 
 leaf_insert.launches = 0
+leaf_insert.global_launches = 0

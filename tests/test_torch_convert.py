@@ -80,13 +80,16 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
+        "new = ('api.protocol', 'checkpoint.store', 'runtime.fault', "
+        "'stream.pipeline', 'stream.loader')\n"
+        "assert all('repro_torch.' + m in sys.modules for m in new)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 15       # every submodule imported
+    assert int(r.stdout.split()[-1]) >= 22       # every submodule imported
 
 
 def test_default_device_is_cuda_and_raises_without_one(monkeypatch):

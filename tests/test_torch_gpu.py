@@ -477,3 +477,126 @@ def test_sketch_kernels_match_plain_end_to_end(cuda):
     for x, y in zip(a.query(qs).values, b.query(qs).values):
         np.testing.assert_array_equal(x, y)
     assert tpr.edge_probe.launches > before
+
+
+@pytest.mark.parametrize("L,d,b,r,n", [(3, 64, 3, 4, 700),
+                                       (2, 32, 12, 4, 500),
+                                       (2, 4, 3000, 4, 300)])
+def test_leaf_insert_kernel_large_leaves(cuda, L, d, b, r, n):
+    """Leaves whose matrices exceed a block's shared memory (d*d*b*20
+    bytes over about 227 KB) take the global-memory form: bit-exact
+    against the plain version, K1 and K2 alike."""
+    rng = np.random.default_rng(L + d + b)
+    items = leaf_items(rng, L, n, d, r, 14, cuda)
+    g1, g2 = tli.leaf_insert_batched.global_launches, \
+        tli.leaf_insert.global_launches
+    check_leaf_insert(items, L, d, b, r)
+    assert tli.leaf_insert_batched.global_launches == g1 + 1
+    assert tli.leaf_insert.global_launches == g2 + 1
+
+
+def test_leaf_insert_kernel_large_leaf_all_spill(cuda):
+    L, d, b, r, n = 2, 32, 12, 2, 200
+    rng = np.random.default_rng(8)
+    items = leaf_items(rng, L, n, d, r, 14, cuda)
+    full = tcm.make_nodes(L, d, b, cuda)
+    full.fp_s.fill_(1 << 20)                       # no 14-bit fingerprint
+    full.w.fill_(1.5)
+    _, sp = check_leaf_insert(items, L, d, b, r, nodes=full)
+    assert torch.equal(sp, items[6].to(torch.int32))
+
+
+def assert_twins_equal(a, b):
+    """Pools (with their bases), leaf index and overflow store of two
+    sketches equal bit for bit."""
+    assert [(p.n, p.base) for p in a.pools] == \
+        [(p.n, p.base) for p in b.pools]
+    for pa, pb in zip(a.pools, b.pools):
+        for name in tcm.NodeState._fields:
+            np.testing.assert_array_equal(pa.arrs[name][:pa.n],
+                                          pb.arrs[name][:pb.n])
+    np.testing.assert_array_equal(a.leaf_ends, b.leaf_ends)
+    da, db = a.ob.data, b.ob.data
+    assert list(da) == list(db)
+    for key in da:
+        for f in da[key]:
+            np.testing.assert_array_equal(da[key][f], db[key][f])
+    assert a.segments.meta() == b.segments.meta()
+
+
+def twin_queries(stream):
+    t0, t1 = int(stream[3][0]), int(stream[3][-1])
+    qs = []
+    for ts, te in ((t0, t1), (t0 + (t1 - t0) // 3, t0 + (t1 - t0) // 2),
+                   (t1 - (t1 - t0) // 20, t1)):
+        qs += [EdgeQuery(stream[0][-300:], stream[1][-300:], ts, te),
+               VertexQuery(stream[0][-150:], ts, te, "out"),
+               VertexQuery(stream[1][-150:], ts, te, "in")]
+    return qs
+
+
+def test_sketch_large_leaves_match_plain(cuda):
+    """A d1 = 64 sketch (10,444-item leaves, 240 KB of slots each) ingests
+    through K1's global-memory form as its plain twin does."""
+    stream = lkml_like_stream(30_000, seed=6)
+    p = HiggsParams(d1=64, b=3)
+    g0 = tli.leaf_insert_batched.global_launches
+    sks = [HiggsSketch(p, device=cuda, kernels=k) for k in (True, False)]
+    for sk in sks:
+        for lo in range(0, 30_000, 12_000):
+            sk.insert(*(a[lo:lo + 12_000] for a in stream))
+        sk.flush()
+    assert tli.leaf_insert_batched.global_launches > g0
+    assert_twins_equal(*sks)
+    qs = twin_queries(stream)
+    for x, y in zip(sks[0].query(qs).values, sks[1].query(qs).values):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("retention", ["window", "budget"])
+def test_retention_sketch_matches_plain(cuda, retention):
+    """Windowed and budgeted sketches on the card equal their
+    ``kernels=False`` twins (pools, bases, overflow store, segments,
+    answers), with K1, K3 and K4 launched."""
+    stream = lkml_like_stream(40_000, seed=3)
+    span = int(stream[3][-1]) - int(stream[3][0])
+    pol = f"window:{span // 4}" if retention == "window" \
+        else "budget:1500000"
+    sks = [HiggsSketch(HiggsParams(retention=pol), device=cuda, kernels=k)
+           for k in (True, False)]
+    k1 = tli.leaf_insert_batched.launches
+    for sk in sks:
+        for lo in range(0, 40_000, 7_000):
+            sk.insert(*(a[lo:lo + 7_000] for a in stream))
+        sk.flush()
+    assert tli.leaf_insert_batched.launches > k1
+    st = sks[0].retention_stats()
+    assert st["segments_evicted"] + st["segments_coarse"] > 0, st
+    if retention == "budget":
+        assert st["segments_coarse"] > 0
+        assert sks[0].space_bytes() <= 1_500_000
+    assert_twins_equal(*sks)
+    qs = twin_queries(stream)
+    e0, v0 = tpr.edge_probe.launches, tpr.vertex_probe.launches
+    for x, y in zip(sks[0].query(qs).values, sks[1].query(qs).values):
+        np.testing.assert_array_equal(x, y)
+    assert tpr.edge_probe.launches > e0 and tpr.vertex_probe.launches > v0
+
+
+def test_snapshot_on_card_restores_on_cpu(cuda, tmp_path):
+    stream = lkml_like_stream(20_000, seed=4)
+    span = int(stream[3][-1]) - int(stream[3][0])
+    sk = HiggsSketch(HiggsParams(retention=f"window:{span // 5}"),
+                     device=cuda)
+    sk.insert(*(a[:17_000] for a in stream))      # a partial leaf pending
+    sk.save(str(tmp_path), 17_000)
+    cpu = HiggsSketch(HiggsParams(), device="cpu")
+    cpu.restore(str(tmp_path))
+    assert cpu.device.type == "cpu" and cpu.segments.n_evicted > 0
+    (xa, ma), (xb, mb) = sk.state_dict(), cpu.state_dict()
+    assert ma == mb and sorted(xa) == sorted(xb)
+    for k in xa:
+        np.testing.assert_array_equal(xa[k], xb[k], err_msg=k)
+    qs = twin_queries(stream)
+    for x, y in zip(sk.query(qs).values, cpu.query(qs).values):
+        np.testing.assert_array_equal(x, y)

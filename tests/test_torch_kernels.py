@@ -471,3 +471,21 @@ def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
         (tmp_path / "probe.cu").read_text() + "\n")
     assert _build._lib_path("probe") != after["probe"]
     assert _build._lib_path("leaf_insert") == after["leaf_insert"]
+
+
+@pytest.mark.parametrize("L,d,b,r,n", [(2, 64, 3, 4, 300)])
+def test_leaf_insert_batched_plain_large_leaf(L, d, b, r, n):
+    """A leaf whose matrices exceed a block's shared memory on the card
+    (64*64*3 slots, 240 KB staged), where the CUDA kernel walks the slabs
+    in global memory: the plain version against the Pallas kernel."""
+    rng = np.random.default_rng(64)
+    items = insert_inputs(rng, (L, n), d, r, F=12)
+    want, want_sp = leaf_insert_batched_pallas(
+        rcm.make_nodes(L, d, b), *(jnp.asarray(a) for a in items), r=r,
+        interpret=True)
+    got, got_sp = tli.leaf_insert_batched(tcm.make_nodes(L, d, b, "cpu"),
+                                          *torch_items(*items), r=r)
+    assert d * d * b * 20 > 227 * 1024
+    for name, g, wv in zip(FIELDS, as_ref(got), as_ref(want)):
+        np.testing.assert_array_equal(g, wv, err_msg=name)
+    np.testing.assert_array_equal(got_sp.numpy(), np.asarray(want_sp))

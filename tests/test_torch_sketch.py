@@ -224,8 +224,6 @@ def test_default_geometry_answers(default_pair):
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        HiggsSketch(HiggsParams(retention="window:100"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         HiggsSketch(HiggsParams(insert_backend="host"), device="cpu")
 

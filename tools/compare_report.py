@@ -78,10 +78,10 @@ def main() -> int:
                       [f] for r in ch])
                 for f in ("ms", "cold_ms", "one_call_ms", "plain_ms",
                           "bound_ms")]
+        prow = next((x for x in pa[0]["kernels"]
+                     if x["name"] == k["name"]), {"launches": "-"})
         print(f"  {k['name']}: " + " | ".join(fmt(v) for v in vals)
-              + f" | {k['launches']} [parent "
-              + str(next(x for x in pa[0]["kernels"]
-                         if x["name"] == k["name"])["launches"]) + "]")
+              + f" | {k['launches']} [parent {prow['launches']}]")
     print("all-level edge probe: ms | cold | one call | plain | bound | "
           "edge_batch ms | sector MB of fp_s, of all loads; change "
           "[parent]")
@@ -117,6 +117,12 @@ def main() -> int:
     for f in ("ingest_s", "query_s", "total_s"):
         print(f"  {f}: {[round(r[f], 2) for r in ch]} "
               f"[{[round(r[f], 2) for r in pa]}]")
+    for phase in ("windowed", "resume", "budget", "large_leaf"):
+        if phase in ch[0]:
+            print(f"  {phase} (change): "
+                  + json.dumps([{k: v for k, v in r[phase].items()
+                                 if not isinstance(v, (dict, list))}
+                                for r in ch], default=str))
     prof = [r["profile"] for r in ch + pa]
     print("  ingest device idle %: "
           + str([round(100 - 100 * p["ingest_device_busy_ms"]
